@@ -1,0 +1,168 @@
+"""VGG19 feature extractor with layer taps.
+
+Counterpart of ``iris_style_transfer_tpu/models/vgg.py`` (reference
+``models/vgg/vgg.py``): torchvision's vgg19 ``features`` stack, ImageNet
+normalization inside the forward, optional mask multiply, content/style
+taps, ``truncate`` after the deepest tap, ``final`` in float32.
+
+Inputs are NCHW in [0,1]; activations run in ``compute_dtype`` with
+channels_last memory.  Block 1's relu1_2 + pool1 is the fused relu+pool op
+(``ops/relu_pool.py``): on a CUDA device that is always the hand-written
+kernel.  Pools 2-4 are relu plus the tie-to-all ``max_pool``, and odd
+extents take the plain pool, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ..ops.image import imagenet_normalize
+from . import layers as L
+
+_CFG = [
+    64, 64, "M",
+    128, 128, "M",
+    256, 256, 256, 256, "M",
+    512, 512, 512, 512, "M",
+    512, 512, 512, 512, "M",
+]
+
+VGG19_LAYERS: dict[str, int] = {}
+VGG19_BN_LAYERS: dict[str, int] = {}
+_CFG_CHANNELS: dict[str, int] = {}
+
+
+def _build_tables():
+    idx = idx_bn = 0
+    block, conv_in_block = 1, 1
+    for c in _CFG:
+        if c == "M":
+            VGG19_LAYERS[f"pool{block}"] = idx
+            VGG19_BN_LAYERS[f"pool{block}"] = idx_bn
+            idx += 1
+            idx_bn += 1
+            block += 1
+            conv_in_block = 1
+        else:
+            name = f"{block}_{conv_in_block}"
+            VGG19_LAYERS[f"conv{name}"] = idx
+            VGG19_LAYERS[f"relu{name}"] = idx + 1
+            idx += 2
+            VGG19_BN_LAYERS[f"conv{name}"] = idx_bn
+            VGG19_BN_LAYERS[f"bn{name}"] = idx_bn + 1
+            VGG19_BN_LAYERS[f"relu{name}"] = idx_bn + 2
+            idx_bn += 3
+            _CFG_CHANNELS[f"conv{name}"] = c
+            conv_in_block += 1
+
+
+_build_tables()
+
+CONV_NAMES = [n for n in VGG19_LAYERS if n.startswith("conv")]
+DEFAULT_CONTENT_LAYERS = ("relu4_2",)
+DEFAULT_STYLE_LAYERS = ("relu1_1", "relu2_1", "relu3_1", "relu4_1")
+
+
+class VGG19:
+    """Functional VGG19: ``params = VGG19.init(gen)``,
+    ``final, content, style = VGG19.apply(params, x, ...)``."""
+
+    layers = VGG19_LAYERS
+    conv_names = CONV_NAMES
+
+    @staticmethod
+    def init(gen: torch.Generator, device="cpu", dtype=torch.float32, bn: bool = False) -> dict:
+        """Seeded He-normal (fan_out) init with zero bias, torchvision's own
+        distribution for VGG; ``bn=True`` builds the vgg19_bn variant."""
+        params = {}
+        cin = 3
+        for name in CONV_NAMES:
+            cout = _CFG_CHANNELS[name]
+            params[name] = L.init_conv_he(gen, 3, 3, cin, cout, device, dtype)
+            if bn:
+                params["bn" + name[4:]] = L.init_batchnorm(cout, device, dtype)
+            cin = cout
+        return params
+
+    @staticmethod
+    def cast(params: dict, dtype: torch.dtype) -> dict:
+        """Conv weights in ``dtype`` and channels_last memory, done once
+        ahead of a loop that runs many forwards (batchnorm leaves stay)."""
+        out = {}
+        for k, p in params.items():
+            if k.startswith("conv"):
+                out[k] = {"w": p["w"].to(dtype).contiguous(memory_format=torch.channels_last),
+                          "b": p["b"].to(dtype)}
+            else:
+                out[k] = p
+        return out
+
+    @staticmethod
+    def apply(
+        params: dict,
+        x: torch.Tensor,
+        mask: torch.Tensor | None = None,
+        content_layers: Sequence[str] = DEFAULT_CONTENT_LAYERS,
+        style_layers: Sequence[str] = DEFAULT_STYLE_LAYERS,
+        compute_dtype=torch.float32,
+        truncate: bool = False,
+        bn: bool = False,
+    ):
+        """x: (B, 3, H, W) in [0,1].  Returns ``(final, content_feats,
+        style_feats)``; taps stay in ``compute_dtype``, ``final`` is float32.
+        ``truncate=True`` stops after the deepest requested tap."""
+        taps_wanted = set(content_layers) | set(style_layers)
+        table = VGG19_BN_LAYERS if bn else VGG19_LAYERS
+        stop_idx = max(table[n] for n in taps_wanted) if truncate else None
+
+        h = imagenet_normalize(x.float())
+        if mask is not None:
+            h = h * mask.to(h.dtype)
+        h = h.to(compute_dtype).contiguous(memory_format=torch.channels_last)
+
+        taps: dict[str, torch.Tensor] = {}
+        block, conv_in_block, idx = 1, 1, 0
+        fuse_next_pool = False
+        for ci, c in enumerate(_CFG):
+            if stop_idx is not None and idx > stop_idx:
+                break
+            if c == "M":
+                h = L.relu_max_pool(h) if fuse_next_pool else L.max_pool(h, 2)
+                fuse_next_pool = False
+                idx += 1
+                block += 1
+                conv_in_block = 1
+                continue
+            cname = f"conv{block}_{conv_in_block}"
+            bname = f"bn{block}_{conv_in_block}"
+            rname = f"relu{block}_{conv_in_block}"
+            h = L.conv2d(h, params[cname], stride=1, padding=1)
+            if cname in taps_wanted:
+                taps[cname] = h
+            idx += 1
+            if bn:
+                h = L.batchnorm(h, params[bname])
+                if bname in taps_wanted:
+                    taps[bname] = h
+                idx += 1
+            nxt = _CFG[ci + 1] if ci + 1 < len(_CFG) else None
+            if (
+                block == 1  # the fused kernel serves pool1 (C = 64), as in JAX
+                and nxt == "M"
+                and rname not in taps_wanted
+                and (stop_idx is None or idx + 1 <= stop_idx)
+                and h.shape[2] % 2 == 0
+                and h.shape[3] % 2 == 0
+            ):
+                fuse_next_pool = True  # relu applied inside the pool
+            else:
+                h = torch.relu(h)
+                if rname in taps_wanted:
+                    taps[rname] = h
+            idx += 1
+            conv_in_block += 1
+
+        final = h.float()
+        return final, [taps[n] for n in content_layers], [taps[n] for n in style_layers]

@@ -1,0 +1,19 @@
+"""Image ops, losses, metrics and the hand-written CUDA kernels (``csrc/``)."""
+
+from .clahe import clahe
+from .gram import gram_matrix
+from .image import (
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    composite_iris,
+    crop_and_resize,
+    gamma_lut,
+    gray_to_rgb,
+    imagenet_normalize,
+    nonzero_bbox,
+    paste_resized,
+    rgb_to_grayscale,
+)
+from .losses import content_loss_l2, style_loss_bn, style_loss_gram, style_stats
+from .metrics import classification_metrics, iou_per_class
+from .relu_pool import relu_max_pool

@@ -1,0 +1,92 @@
+"""Typed workload config with the reference's CLI flag names.
+
+Counterpart of ``iris_style_transfer_tpu/runtime/config.py``; the same
+dataclass and flags, so a command line of the JAX workload parses here.
+Knobs that only shape the TPU program (``scan_unroll``, ``pallas_gram``,
+``n_devices``) are accepted and have no effect on one device.
+"""
+
+from __future__ import annotations
+
+import argparse
+from dataclasses import asdict, dataclass
+
+
+@dataclass
+class WorkloadConfig:
+    project: str = "iris-style-transfer"
+    seed: int = 42
+    epochs: int = 500
+    test_split_ratio: float = 0.2
+    bs: int = 64
+    lr: float = 1e-5
+    save_period: int = 50
+    rotation_prob: float = 0.0
+    rotation_degree: float = 180.0
+    perspect_prob: float = 0.0
+    perspect_degree: float = 0.3
+    freeze_vgg: bool = True
+    c_loss_weight: float = 1.0
+    s_loss_weight: float = 1.0
+    nst_epochs: int = 200
+    glint_threshold: float = 0.8
+    eval_train: bool = False
+    eval_test: bool = False
+    estimator: int = 1
+    test: bool = False
+    num_workers: int = 16
+    model_parallel: int = 1
+    n_devices: int = 0
+    compute_dtype: str = "bfloat16"
+    data_dir: str = "../data"
+    resume: bool = False
+    name: str = ""
+    scan_unroll: int = 8
+    history_size: int = 10
+    pallas_gram: str = "auto"
+    stats_taps: str = "auto"
+
+    def to_dict(self) -> dict:
+        return asdict(self)
+
+
+def add_common_args(parser: argparse.ArgumentParser, defaults: WorkloadConfig) -> None:
+    """Register the reference's flags (same short names) and the JAX
+    package's knobs."""
+    p = parser
+    p.add_argument("-P", "--project", type=str, default=defaults.project)
+    p.add_argument("-seed", "--seed", type=int, default=defaults.seed)
+    p.add_argument("-E", "--epochs", type=int, default=defaults.epochs)
+    p.add_argument("-T", "--test_split_ratio", type=float, default=defaults.test_split_ratio)
+    p.add_argument("-bs", "--bs", type=int, default=defaults.bs)
+    p.add_argument("-lr", "--lr", type=float, default=defaults.lr)
+    p.add_argument("-SP", "--save_period", type=int, default=defaults.save_period)
+    p.add_argument("-rp", "--rotation_prob", type=float, default=defaults.rotation_prob)
+    p.add_argument("-rd", "--rotation_degree", type=float, default=defaults.rotation_degree)
+    p.add_argument("-pp", "--perspect_prob", type=float, default=defaults.perspect_prob)
+    p.add_argument("-pd", "--perspect_degree", type=float, default=defaults.perspect_degree)
+    p.add_argument("-cw", "--c_loss_weight", type=float, default=defaults.c_loss_weight)
+    p.add_argument("--glint_threshold", type=float, default=defaults.glint_threshold)
+    p.add_argument("--freeze_vgg", action=argparse.BooleanOptionalAction, default=defaults.freeze_vgg)
+    p.add_argument("--eval_train", action=argparse.BooleanOptionalAction, default=defaults.eval_train)
+    p.add_argument("--eval_test", action=argparse.BooleanOptionalAction, default=defaults.eval_test)
+    p.add_argument("-estimator", "--estimator", type=int, default=defaults.estimator)
+    p.add_argument("--test", action=argparse.BooleanOptionalAction, default=defaults.test)
+    p.add_argument("-W", "--num_workers", type=int, default=defaults.num_workers)
+    p.add_argument("--model_parallel", type=int, default=defaults.model_parallel)
+    p.add_argument("--n_devices", type=int, default=defaults.n_devices)
+    p.add_argument("--compute_dtype", type=str, default=defaults.compute_dtype)
+    p.add_argument("--data_dir", type=str, default=defaults.data_dir)
+    p.add_argument("--resume", action=argparse.BooleanOptionalAction, default=defaults.resume)
+    p.add_argument("--scan_unroll", type=int, default=defaults.scan_unroll)
+    p.add_argument("--history_size", type=int, default=defaults.history_size)
+    p.add_argument("--pallas_gram", type=str, choices=("auto", "on", "off"), default=defaults.pallas_gram)
+    p.add_argument("--stats_taps", type=str, choices=("auto", "on", "off"), default=defaults.stats_taps)
+
+
+def parse_config(parser: argparse.ArgumentParser, defaults: WorkloadConfig, argv=None):
+    """Parse once; returns ``(cfg, args)`` so mains read their extra flags
+    from the same parse."""
+    args = parser.parse_args(argv)
+    cfg = WorkloadConfig(**{k: getattr(args, k) for k in defaults.to_dict() if hasattr(args, k)})
+    return cfg, args
