@@ -4,19 +4,21 @@
 The JAX package stays the reference; each subpackage here mirrors the one
 at the same path there:
 
-  * ``ops``        — image ops, CLAHE, losses, Gram, metrics, and the
-                     hand-written CUDA kernels (``ops/csrc``) with their
-                     plain torch versions.
-  * ``models``     — VGG19, RITnet and the classifier heads over explicit
-                     parameter dicts, plus the weight bridge from the JAX
-                     package's npz/pytree format.
+  * ``ops``        — image ops, CLAHE, losses, Gram, metrics, the batched
+                     eye landmarks, and the hand-written CUDA kernels
+                     (``ops/csrc``) with their plain torch versions.
+  * ``models``     — VGG19, RITnet, the EfficientNet-B7 U-Net, ResNet50,
+                     the classifier heads and the gaze estimators over
+                     explicit parameter dicts, plus the weight bridge from
+                     the JAX package's npz/pytree format.
   * ``transfer``   — the NST loop and the sync-free compact L-BFGS.
   * ``pipelines``  — masked-iris extraction and recomposition.
   * ``data``       — the synthetic OpenEDS twin and IST dataset building.
   * ``runtime``    — config, JSONL metric logging, checkpoint restore,
                      step timing.
   * ``utils``      — seeding, output directories, sweep markers.
-  * ``workloads``  — ``ist_openeds2019``, the 2019 privacy evaluation.
+  * ``workloads``  — ``ist_openeds2019`` (recognition privacy) and
+                     ``ist_openeds2020`` (gaze preservation).
 
 No module imports JAX.
 """

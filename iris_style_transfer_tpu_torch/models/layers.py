@@ -1,9 +1,9 @@
 """Functional NN primitives on NCHW tensors (OIHW conv, (out, in) linear).
 
 Counterpart of ``iris_style_transfer_tpu/models/layers.py``, only what
-VGG19, RITnet and the classifier heads use.  Conv activations stay NCHW
-with channels_last memory so cuDNN and the relu+pool kernel both see NHWC
-bytes.  Initializers draw from an explicit CPU ``torch.Generator`` and
+VGG19, RITnet, the B7 U-Net, ResNet50 and the classifier and gaze heads
+use.  Conv activations stay NCHW with channels_last memory so cuDNN and
+the hand-written kernels all see NHWC bytes.  Initializers draw from an explicit CPU ``torch.Generator`` and
 move the result to ``device``, so a seed gives the same weights on every
 device.
 
@@ -115,13 +115,16 @@ class _MaxPool2TieAll(torch.autograd.Function):
         return g6.reshape(b, c, h, w)
 
 
-def max_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
-    """Stride == window max-pool.  Even extents at window 2 take the
-    tie-to-all autograd Function; other cases take ``F.max_pool2d`` (floor
-    mode; its one-winner backward matches XLA's reduce_window gradient)."""
-    if window == 2 and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0:
+def max_pool(x: torch.Tensor, window: int = 2, stride: int | None = None) -> torch.Tensor:
+    """VALID max-pool, ``stride`` defaulting to ``window``.  Even extents at
+    window == stride == 2 take the tie-to-all autograd Function; other
+    cases, ResNet's overlapping 3x3/2 pool among them, take
+    ``F.max_pool2d`` (floor mode; its one-winner backward matches XLA's
+    reduce_window gradient)."""
+    stride = stride or window
+    if window == stride == 2 and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0:
         return _MaxPool2TieAll.apply(x)
-    return F.max_pool2d(x, window, window)
+    return F.max_pool2d(x, window, stride)
 
 
 def avg_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
@@ -134,7 +137,8 @@ def adaptive_avg_pool(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
 
 
 def upsample_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
-    return x.repeat_interleave(scale, dim=2).repeat_interleave(scale, dim=3)
+    """Nearest-neighbour integer upsample; keeps channels_last memory."""
+    return F.interpolate(x, scale_factor=scale, mode="nearest")
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:

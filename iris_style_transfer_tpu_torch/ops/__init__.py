@@ -1,6 +1,8 @@
 """Image ops, losses, metrics and the hand-written CUDA kernels (``csrc/``)."""
 
 from .clahe import clahe
+from .depthwise import dw_conv_bn_silu
+from .ellipse import extract_eye_landmarks, eye_corners, fit_ellipse_mask
 from .gram import gram_matrix
 from .image import (
     IMAGENET_MEAN,
@@ -11,9 +13,10 @@ from .image import (
     gray_to_rgb,
     imagenet_normalize,
     nonzero_bbox,
+    pad_height,
     paste_resized,
     rgb_to_grayscale,
 )
 from .losses import content_loss_l2, style_loss_bn, style_loss_gram, style_stats
-from .metrics import classification_metrics, iou_per_class
+from .metrics import angular_distance, classification_metrics, iou_per_class
 from .relu_pool import relu_max_pool

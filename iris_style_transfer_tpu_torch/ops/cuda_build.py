@@ -4,8 +4,8 @@ Each source is compiled on first use with ``nvcc -shared -Xcompiler -fPIC``
 for ``sm_90a`` into ``iris_style_transfer_tpu_torch/_build/`` (listed in
 ``.gitignore``) and loaded with :mod:`ctypes`.  The library name carries a
 hash of the source and the flags, so an edited kernel is rebuilt and a
-stale library is never loaded.  An ``fcntl`` lock serializes concurrent
-builders.  A failed build raises with nvcc's stderr; nothing falls back.
+stale library is never loaded.  An ``fcntl`` lock per source serializes
+concurrent builders of one library; different sources build in parallel.  A failed build raises with nvcc's stderr; nothing falls back.
 The sources expose plain C entry points, so no PyTorch header is compiled
 and a build takes seconds.
 """
@@ -58,7 +58,7 @@ def load_library(source: str) -> ctypes.CDLL:
     os.makedirs(BUILD_DIR, exist_ok=True)
     info = {"seconds": 0.0, "log": "", "path": so}
     if not os.path.exists(so):
-        with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        with open(os.path.join(BUILD_DIR, f".{stem}.lock"), "w") as lock:
             fcntl.flock(lock, fcntl.LOCK_EX)
             if not os.path.exists(so):  # another process may have built it meanwhile
                 tmp = f"{so}.{os.getpid()}.tmp"

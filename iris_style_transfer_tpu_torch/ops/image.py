@@ -139,6 +139,12 @@ def gamma_lut(x: torch.Tensor, gamma: float = 0.8) -> torch.Tensor:
     return table[u] / 255.0
 
 
+def pad_height(x: torch.Tensor, top: int, bottom: int, value: float = 0.0) -> torch.Tensor:
+    """Pad the H axis of channel-last (..., H, W, C) images; the B7 shell
+    pads 400 -> 416 rows with (8, 8)."""
+    return torch.nn.functional.pad(x, (0, 0, 0, 0, top, bottom), value=value)
+
+
 def nonzero_bbox(mask: torch.Tensor) -> torch.Tensor:
     """Batched inclusive bbox ``[r_min, c_min, r_max, c_max]`` (int32) of the
     nonzero extent of (B, H, W) masks; an empty mask gives the full image."""

@@ -80,6 +80,14 @@ def classification_metrics(
     return {"loss": loss, "auc": auc, "accu": accu, "mcc": mcc, "prec": prec, "recl": recl, "f1": f1}
 
 
+def angular_distance(v1: torch.Tensor, v2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(radian, degree) distances between unit vectors (N, 3); the dot
+    product is clipped to [-1, 1] before the arccos."""
+    dot = torch.clamp((v1 * v2).sum(dim=1), -1.0, 1.0)
+    rad = torch.arccos(dot)
+    return rad, torch.rad2deg(rad)
+
+
 def iou_per_class(
     preds: torch.Tensor, targets: torch.Tensor, num_class: int = 4, eps: float = 1e-6
 ) -> tuple[torch.Tensor, torch.Tensor]:
