@@ -9,8 +9,9 @@ device.
 
 The JAX package's TPU-layout pool variants (``POOL_STRIDED``,
 ``POOL_PAIRED``, the ``*_PALLAS`` flags, ``FUSE_RELU_POOL``,
-``USE_MXU_FWD``, ``STATS_TAPS``, ``batch_groups``) ship off there and are
-not ported.
+``USE_MXU_FWD``, ``batch_groups``) ship off there and are not ported.  Nor
+is the ``STATS_TAPS`` module flag: the fused relu+stats tap
+(:func:`relu_stats`) is chosen per call, and off is the JAX default.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.relu_pool import relu_max_pool  # noqa: F401  (the VGG block-1 pool)
+from ..ops.relu_stats import relu_stats  # noqa: F401  (the VGG style taps under stats_taps)
 
 
 # ---------------------------------------------------------------------------

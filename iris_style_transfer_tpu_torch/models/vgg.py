@@ -9,7 +9,10 @@ Inputs are NCHW in [0,1]; activations run in ``compute_dtype`` with
 channels_last memory.  Block 1's relu1_2 + pool1 is the fused relu+pool op
 (``ops/relu_pool.py``): on a CUDA device that is always the hand-written
 kernel.  Pools 2-4 are relu plus the tie-to-all ``max_pool``, and odd
-extents take the plain pool, as in the JAX package.
+extents take the plain pool, as in the JAX package.  ``stats_taps=True``
+computes each style tap with the fused relu+stats op
+(``ops/relu_stats.py``; on a CUDA device the hand-written kernels) and
+returns its (mean, std) pair instead of the activation.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Sequence
 import torch
 
 from ..ops.image import imagenet_normalize
+from ..ops.losses import stats_from_sums
 from . import layers as L
 
 _CFG = [
@@ -73,6 +77,13 @@ class VGG19:
     conv_names = CONV_NAMES
 
     @staticmethod
+    def stats_taps_eligible(style_layers: Sequence[str], content_layers: Sequence[str]) -> bool:
+        """True iff every style tap is a relu not shared with the content
+        taps: the one rule for whether ``stats_taps`` may apply (a partial
+        set would return a mixed tensor / (mean, std) style list)."""
+        return all(n.startswith("relu") and n not in content_layers for n in style_layers)
+
+    @staticmethod
     def init(gen: torch.Generator, device="cpu", dtype=torch.float32, bn: bool = False) -> dict:
         """Seeded He-normal (fan_out) init with zero bias, torchvision's own
         distribution for VGG; ``bn=True`` builds the vgg19_bn variant."""
@@ -109,11 +120,19 @@ class VGG19:
         compute_dtype=torch.float32,
         truncate: bool = False,
         bn: bool = False,
+        stats_taps: bool = False,
     ):
         """x: (B, 3, H, W) in [0,1].  Returns ``(final, content_feats,
         style_feats)``; taps stay in ``compute_dtype``, ``final`` is float32.
-        ``truncate=True`` stops after the deepest requested tap."""
+        ``truncate=True`` stops after the deepest requested tap.
+        ``stats_taps=True`` returns each style entry as its (mean, std)
+        pair, (B, C) float32 each; every style layer must then be a relu
+        that is not also a content layer (else ``ValueError``)."""
         taps_wanted = set(content_layers) | set(style_layers)
+        if stats_taps and not VGG19.stats_taps_eligible(style_layers, content_layers):
+            raise ValueError("stats_taps=True requires every style layer to be a relu not shared "
+                             f"with content_layers; got {list(style_layers)}")
+        stats_set = set(style_layers) if stats_taps else set()
         table = VGG19_BN_LAYERS if bn else VGG19_LAYERS
         stop_idx = max(table[n] for n in taps_wanted) if truncate else None
 
@@ -157,6 +176,11 @@ class VGG19:
                 and h.shape[3] % 2 == 0
             ):
                 fuse_next_pool = True  # relu applied inside the pool
+            elif rname in stats_set:
+                # the fused tap reads NHWC bytes; after the plain pools 2-3
+                # the activations are NCHW-contiguous (amax's default layout)
+                h, s1, s2 = L.relu_stats(h.contiguous(memory_format=torch.channels_last))
+                taps[rname] = stats_from_sums(s1, s2, h.shape[2] * h.shape[3])
             else:
                 h = torch.relu(h)
                 if rname in taps_wanted:

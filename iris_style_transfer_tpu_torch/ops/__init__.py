@@ -17,6 +17,6 @@ from .image import (
     paste_resized,
     rgb_to_grayscale,
 )
-from .losses import content_loss_l2, style_loss_bn, style_loss_gram, style_stats
+from .losses import content_loss_l2, style_loss_bn, style_loss_bn_stats, style_loss_gram, style_stats
 from .metrics import angular_distance, classification_metrics, iou_per_class
 from .relu_pool import relu_max_pool

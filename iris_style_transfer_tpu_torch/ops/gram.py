@@ -1,9 +1,10 @@
 """Gram matrices for style features.
 
 Counterpart of ``iris_style_transfer_tpu/ops/gram.py``.  Features are NCHW
-here; the contraction is one batched matmul in float32.  The JAX package's
-Pallas Gram kernel (``ops/pallas_gram.py``) is not ported yet — this is the
-plain form it is held against (ROADMAP, TPU kernels still to port).
+here; the contraction is one batched matmul in float32.  This is the plain
+version of the hand-written Gram kernel (``ops/blockwise_gram.py``, the
+counterpart of the JAX package's ``ops/pallas_gram.py``): the kernel is
+held against it on the card, and a CPU tensor takes it.
 """
 
 from __future__ import annotations

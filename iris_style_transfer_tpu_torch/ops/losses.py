@@ -4,7 +4,8 @@ Counterpart of ``iris_style_transfer_tpu/ops/losses.py``:
   * content_loss_l2 — ``0.5 * sum_i w_i * mean((p_i - t_i)^2)``
   * style_loss_gram — ``0.25 * sum_i w_i * sum((G(p_i) - G_t_i)^2)``
   * style_loss_bn   — ``sum_i w_i * sum((mu_p-mu_t)^2 + (sd_p-sd_t)^2)/C_i``
-    with per-channel spatial mean and Bessel-corrected std.
+    with per-channel spatial mean and Bessel-corrected std;
+    ``style_loss_bn_stats`` is the same on precomputed (mean, std) pairs.
 
 Features are NCHW; every reduction accumulates in float32.  The losses
 return device scalars and never read them back.
@@ -67,16 +68,26 @@ def style_stats(feat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return stats_from_sums(s1, s2, n)
 
 
+def style_loss_bn_stats(
+    pred_stats: Sequence[tuple[torch.Tensor, torch.Tensor]],
+    target_stats: Sequence[tuple[torch.Tensor, torch.Tensor]],
+    weights: Sequence[float] | None = None,
+) -> torch.Tensor:
+    """:func:`style_loss_bn` on (mean, std) pairs the VGG forward already
+    computed with the fused relu+stats tap (``stats_taps``)."""
+    loss = 0.0
+    for (p_mean, p_std), (t_mean, t_std), w in zip(pred_stats, target_stats,
+                                                   _weights(weights, len(target_stats))):
+        c = p_mean.shape[-1]
+        term = torch.sum((p_mean - t_mean) ** 2 + (p_std - t_std) ** 2)
+        loss = loss + term * (w / c)
+    return loss
+
+
 def style_loss_bn(
     preds: Sequence[torch.Tensor],
     target_stats: Sequence[tuple[torch.Tensor, torch.Tensor]],
     weights: Sequence[float] | None = None,
 ) -> torch.Tensor:
     """sum_i w_i * sum_{b,c}((mu_p-mu_t)^2 + (sd_p-sd_t)^2) / C_i."""
-    loss = 0.0
-    for p, (t_mean, t_std), w in zip(preds, target_stats, _weights(weights, len(target_stats))):
-        p_mean, p_std = style_stats(p)
-        c = p_mean.shape[-1]
-        term = torch.sum((p_mean - t_mean) ** 2 + (p_std - t_std) ** 2)
-        loss = loss + term * (w / c)
-    return loss
+    return style_loss_bn_stats([style_stats(p) for p in preds], target_stats, weights)

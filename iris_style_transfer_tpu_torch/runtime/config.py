@@ -2,14 +2,29 @@
 
 Counterpart of ``iris_style_transfer_tpu/runtime/config.py``; the same
 dataclass and flags, so a command line of the JAX workload parses here.
-Knobs that only shape the TPU program (``scan_unroll``, ``pallas_gram``,
-``n_devices``) are accepted and have no effect on one device.
+Knobs that only shape the TPU program (``scan_unroll``, ``n_devices``) are
+accepted and have no effect on one device.  So is ``--pallas_gram``: the
+IST mains never use the Gram loss, and on a CUDA device the Gram always
+runs the hand-written kernel (``ops/blockwise_gram.py``).
+``--stats_taps on`` takes the fused relu+stats style taps
+(``ops/relu_stats.py``); "auto" means off, as the JAX package's
+``layers.STATS_TAPS = False`` makes it there.
 """
 
 from __future__ import annotations
 
 import argparse
 from dataclasses import asdict, dataclass
+
+import torch
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device a run asks for; a CUDA request without CUDA raises."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {name} was requested but CUDA is not available")
+    return device
 
 
 @dataclass

@@ -1,4 +1,4 @@
 """The NST engine: on-device L-BFGS / Adam in image space."""
 
 from .lbfgs import LBFGSState, lbfgs_init, lbfgs_step
-from .nst import NSTResult, cached_nst_program, make_nst_fn
+from .nst import NSTResult, cached_nst_program, make_nst_fn, nst

@@ -13,6 +13,13 @@ loop whose every step only enqueues device work: the loss histories are
 preallocated device tensors written in place, and nothing is read back
 until the loop ends.  Images are NCHW; the VGG forward turns them into
 channels_last activations.
+
+Three style losses, as in the JAX package: the BN statistics of the taps
+(the default), the same on (mean, std) pairs that the fused relu+stats tap
+computes inside the VGG forward (``stats_taps=True``, ``ops/relu_stats.py``),
+and the Gram loss (``bn_loss=False``), whose Gram matrices, targets and
+closure alike, go through ``ops/blockwise_gram.py``.  On a CUDA device
+both of those are the hand-written kernels.
 """
 
 from __future__ import annotations
@@ -23,8 +30,8 @@ from typing import NamedTuple, Sequence
 import torch
 
 from ..models.vgg import VGG19
-from ..ops.gram import gram_matrix
-from ..ops.losses import content_loss_l2, style_loss_bn, style_loss_gram, style_stats
+from ..ops.blockwise_gram import gram_matrix
+from ..ops.losses import content_loss_l2, style_loss_bn, style_loss_bn_stats, style_loss_gram, style_stats
 from .lbfgs import lbfgs_init, lbfgs_step
 
 ADAM_B1, ADAM_B2 = 0.9, 0.999
@@ -52,18 +59,24 @@ def make_nst_fn(
     content_layers: Sequence[str] = ("relu4_2",),
     style_layers: Sequence[str] = ("relu1_1", "relu2_1", "relu3_1", "relu4_1"),
     compute_dtype=torch.float32,
+    stats_taps: bool = False,
 ):
     """Build ``fn(vgg_params, c_img, s_img, generator=None) -> NSTResult``.
     ``generator`` (a CPU ``torch.Generator``) draws the noise init when
-    ``clone_content=False``; ``history_every=k`` keeps every k-th image."""
+    ``clone_content=False``; ``history_every=k`` keeps every k-th image.
+    ``stats_taps=True`` takes the fused relu+stats taps for the BN loss; it
+    needs the BN loss and every style layer a relu that is not a content
+    layer, and otherwise the classic path runs, as in the JAX package."""
     if optimizer not in ("lbfgs", "adam"):
         raise ValueError(f"unknown optimizer: {optimizer}")
+    use_stats = stats_taps and bn_loss and VGG19.stats_taps_eligible(style_layers, content_layers)
     vgg_apply = functools.partial(
         VGG19.apply,
         content_layers=tuple(content_layers),
         style_layers=tuple(style_layers),
         compute_dtype=compute_dtype,
         truncate=True,
+        stats_taps=use_stats,
     )
 
     @torch.no_grad()
@@ -75,12 +88,20 @@ def make_nst_fn(
 
         _, c_targets, _ = vgg_apply(params, c_img)
         _, _, s_feats = vgg_apply(params, s_img)
-        s_targets = [style_stats(f) if bn_loss else gram_matrix(f) for f in s_feats]
+        if use_stats:
+            s_targets = s_feats  # already (mean, std) pairs
+        else:
+            s_targets = [style_stats(f) if bn_loss else gram_matrix(f) for f in s_feats]
 
         def loss_fn(x):
             _, x_c, x_s = vgg_apply(params, x)
             c_loss = content_loss_l2(x_c, c_targets)
-            s_loss = style_loss_bn(x_s, s_targets) if bn_loss else style_loss_gram(x_s, s_targets)
+            if use_stats:
+                s_loss = style_loss_bn_stats(x_s, s_targets)
+            elif bn_loss:
+                s_loss = style_loss_bn(x_s, s_targets)
+            else:
+                s_loss = style_loss_gram(x_s, s_targets, gram_fn=gram_matrix)
             return c_loss * c_loss_weight + s_loss * s_loss_weight, c_loss, s_loss
 
         if clone_content:
@@ -127,22 +148,68 @@ def make_nst_fn(
     return fn
 
 
-@functools.lru_cache(maxsize=16)
+def nst(
+    c_img: torch.Tensor,
+    s_img: torch.Tensor,
+    vgg_params: dict,
+    clone_content: bool = True,
+    BN_loss: bool = True,
+    c_loss_weight: float = 1.0,
+    s_loss_weight: float = 1.0,
+    lr: float = 1.0,
+    epochs: int = 200,
+    optimizer: str = "lbfgs",
+    history_every: int = 0,
+    history_size: int = 10,
+    compute_dtype=torch.float32,
+    generator: torch.Generator | None = None,
+) -> NSTResult:
+    """Convenience wrapper with the reference's flag names
+    (``pipelines.py:8-19``), built once per configuration.  Images are NCHW
+    in [0,1]; ``generator`` takes the place of the JAX ``noise_key``, and
+    ``scan_unroll`` has no counterpart in an eager loop."""
+    fn = _cached_nst_fn(
+        epochs=epochs,
+        clone_content=clone_content,
+        bn_loss=BN_loss,
+        c_loss_weight=float(c_loss_weight),
+        s_loss_weight=float(s_loss_weight),
+        lr=float(lr),
+        optimizer=optimizer,
+        history_every=history_every,
+        history_size=history_size,
+        compute_dtype=compute_dtype,
+    )
+    return fn(vgg_params, c_img, s_img, generator)
+
+
+@functools.lru_cache(maxsize=32)
+def _cached_nst_fn(**kwargs):
+    """The one cache in front of :func:`make_nst_fn`, for :func:`nst` and
+    :func:`cached_nst_program` alike."""
+    return make_nst_fn(**kwargs)
+
+
 def cached_nst_program(
     nst_epochs: int,
     c_w: float,
     s_w: float,
     compute_dtype_name: str,
     history_size: int = 10,
+    stats_taps: str = "off",
 ):
     """The production NST program shared by the IST workload mains: BN
-    loss, content-clone init, compact L-BFGS with a bfloat16 history."""
-    compute_dtype = torch.bfloat16 if compute_dtype_name == "bfloat16" else torch.float32
-    return make_nst_fn(
+    loss, content-clone init, compact L-BFGS with a bfloat16 history.
+    ``stats_taps`` is ``--stats_taps``: "on" takes the fused relu+stats
+    taps; "auto" is resolved to "off" before the cache, the JAX default."""
+    if stats_taps not in ("auto", "on", "off"):
+        raise ValueError(f"stats_taps must be auto, on or off, got {stats_taps!r}")
+    return _cached_nst_fn(
         epochs=nst_epochs,
-        c_loss_weight=c_w,
-        s_loss_weight=s_w,
-        compute_dtype=compute_dtype,
+        c_loss_weight=float(c_w),
+        s_loss_weight=float(s_w),
+        compute_dtype=torch.bfloat16 if compute_dtype_name == "bfloat16" else torch.float32,
         history_size=history_size,
         lbfgs_dtype=torch.bfloat16,
+        stats_taps=stats_taps == "on",
     )

@@ -4,7 +4,7 @@ Counterpart of ``iris_style_transfer_tpu/utils/misc.py``.  :func:`seed`
 seeds the host RNGs (dataset splits and donor sampling) and returns a CPU
 ``torch.Generator`` for seeded parameter init; ``prepare_dir``,
 ``sweep_done`` and ``write_sweep_marker`` keep sweeps resumable;
-``save_png`` writes the sample images the workloads keep.
+``save_png`` writes the sample images the workloads keep (``utils/png.py``).
 """
 
 from __future__ import annotations
@@ -13,11 +13,11 @@ import json
 import os
 import random
 import shutil
-import struct
-import zlib
 
 import numpy as np
 import torch
+
+from .png import write_png
 
 
 def seed(seed_value: int = 42, verbose: bool = True) -> torch.Generator:
@@ -41,25 +41,8 @@ def prepare_dir(path: str, idempotent: bool = False) -> None:
 
 def save_png(path: str, img: np.ndarray) -> None:
     """Write an (H, W), (H, W, 1) or (H, W, 3) image as an 8-bit PNG; floats
-    are taken as [0,1].  Plain zlib, so no imaging library is needed."""
-    a = np.asarray(img)
-    if a.dtype != np.uint8:
-        a = (np.clip(a, 0.0, 1.0) * 255.0).astype(np.uint8)
-    if a.ndim == 3 and a.shape[-1] == 1:
-        a = a[..., 0]
-    h, w = a.shape[:2]
-    color = 0 if a.ndim == 2 else 2  # grayscale or RGB
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        body = tag + data
-        return struct.pack(">I", len(data)) + body + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF)
-
-    raw = b"".join(b"\x00" + a[r].tobytes() for r in range(h))
-    with open(path, "wb") as fh:
-        fh.write(b"\x89PNG\r\n\x1a\n")
-        fh.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)))
-        fh.write(chunk(b"IDAT", zlib.compress(raw)))
-        fh.write(chunk(b"IEND", b""))
+    are taken as [0,1] (``utils/png.py``, no imaging library needed)."""
+    write_png(path, img)
 
 
 def sweep_done(marker_path: str, config: dict, defaults: dict | None = None) -> bool:

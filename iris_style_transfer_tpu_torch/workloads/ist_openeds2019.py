@@ -32,19 +32,11 @@ from ..ops.image import as_bool_mask, as_label_map, crop_and_resize, gray_to_rgb
 from ..ops.metrics import classification_metrics, iou_per_class
 from ..pipelines import composite_batch
 from ..runtime import MetricLogger, StepTimer, restore_params
-from ..runtime.config import WorkloadConfig, add_common_args, parse_config
+from ..runtime.config import WorkloadConfig, add_common_args, parse_config, resolve_device
 from ..transfer.nst import cached_nst_program
 from ..utils import prepare_dir, save_png, seed as seed_all, sweep_done, write_sweep_marker
 
 CROP = (224, 224)
-
-
-def resolve_device(name: str) -> torch.device:
-    """The device a run asks for; a CUDA request without CUDA raises."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {name} was requested but CUDA is not available")
-    return device
 
 
 def _sync(device: torch.device) -> None:
@@ -150,7 +142,8 @@ def iris_style_transfer_openeds2019(
         programs = make_programs(compute_dtype)
     pre_fn, post_fn, post_seg = programs
     nst_fn = cached_nst_program(
-        nst_epoch, float(c_loss_weight), float(s_loss_weight), cfg.compute_dtype, cfg.history_size
+        nst_epoch, float(c_loss_weight), float(s_loss_weight), cfg.compute_dtype, cfg.history_size,
+        cfg.stats_taps,
     )
 
     agg = {k: [] for k in ("pre1", "pre2", "post1", "post2", "c_labels", "s_labels",
@@ -273,9 +266,6 @@ def main(argv: list[str] | None = None):
     if cfg.model_parallel > 1:
         raise SystemExit("--model_parallel > 1 needs a multi-device mesh, which the torch "
                          "port does not have yet (ROADMAP: multi-device data parallelism)")
-    if cfg.stats_taps == "on":
-        raise SystemExit("--stats_taps on needs the fused relu+stats kernel, not ported yet "
-                         "(ROADMAP: TPU kernels still to port)")
 
     gen = seed_all(cfg.seed)
     base = os.path.join(cfg.data_dir, "openeds2019")

@@ -37,10 +37,10 @@ from ..ops.image import crop_and_resize, gray_to_rgb, nonzero_bbox, quantize_u8,
 from ..ops.metrics import angular_distance
 from ..pipelines import composite_batch, extract_iris_batch
 from ..runtime import MetricLogger, StepTimer, restore_params
-from ..runtime.config import WorkloadConfig, add_common_args, parse_config
+from ..runtime.config import WorkloadConfig, add_common_args, parse_config, resolve_device
 from ..transfer.nst import cached_nst_program
 from ..utils import prepare_dir, save_png, seed as seed_all, sweep_done, write_sweep_marker
-from .ist_openeds2019 import _sync, resolve_device
+from .ist_openeds2019 import _sync
 
 # frames per B7 + ResNet50 chunk at 400x640.  At 32 one bf16 B7 chunk
 # apply peaks at 5.06 GB and the whole main at 13.16 GB on an NVIDIA H100
@@ -138,7 +138,8 @@ def iris_style_transfer_openeds2020(
         programs = make_programs(cfg.glint_threshold, compute_dtype, device)
     pre_fn, post_fn = programs
     nst_fn = cached_nst_program(
-        nst_epoch, float(c_loss_weight), float(s_loss_weight), cfg.compute_dtype, cfg.history_size
+        nst_epoch, float(c_loss_weight), float(s_loss_weight), cfg.compute_dtype, cfg.history_size,
+        cfg.stats_taps,
     )
     s_iris_rgb = gray_to_rgb(s_iris.to(device)).permute(2, 0, 1)  # (3, 224, 224)
 
@@ -253,9 +254,6 @@ def main(argv: list[str] | None = None):
     if cfg.model_parallel > 1:
         raise SystemExit("--model_parallel > 1 needs a multi-device mesh, which the torch "
                          "port does not have yet (ROADMAP: multi-device data parallelism)")
-    if cfg.stats_taps == "on":
-        raise SystemExit("--stats_taps on needs the fused relu+stats kernel, not ported yet "
-                         "(ROADMAP: TPU kernels still to port)")
     base = os.path.join(cfg.data_dir, "openeds2020", "openEDS2020-GazePrediction")
     if os.path.isdir(base):
         raise SystemExit(f"{base} exists, but streaming the real OpenEDS2020 frames is not ported "

@@ -12,8 +12,11 @@ import pytest
 import torch
 
 from iris_style_transfer_tpu_torch.models import VGG19, EfficientNet
+from iris_style_transfer_tpu_torch.ops import blockwise_gram as bg
 from iris_style_transfer_tpu_torch.ops import depthwise as dw
 from iris_style_transfer_tpu_torch.ops import relu_pool as rp
+from iris_style_transfer_tpu_torch.ops import relu_stats as rs
+from iris_style_transfer_tpu_torch.transfer.nst import make_nst_fn
 
 pytestmark = pytest.mark.cuda
 
@@ -109,3 +112,82 @@ def test_efficientnet_apply_launches_the_kernel_102_times(cuda):
         labels = EfficientNet.apply(params, frames, compute_dtype=torch.bfloat16)
     assert labels.shape == (1, 48, 64)
     assert dw.LAUNCHES["dw_conv_bn_silu"] == before + 102  # 51 stride-1 blocks, twice for the flip
+
+
+def _stats_inputs(shape_nhwc, dtype, gen):
+    b, h, w, c = shape_nhwc
+    x = torch.randn(shape_nhwc, generator=gen, device="cuda")
+    x[:, 0:2, 0:2, :] = 0.0
+    x = x.to(dtype).permute(0, 3, 1, 2)
+    ct = torch.randn(shape_nhwc, generator=gen, device="cuda").to(dtype).permute(0, 3, 1, 2)
+    return x, ct, torch.randn((b, c), generator=gen, device="cuda"), torch.randn((b, c), generator=gen, device="cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 8, 12, 3), (4, 32, 32, 64), (3, 7, 9, 300), (1, 1, 1, 1)])
+def test_relu_stats_kernels_exact_and_within_tolerance(cuda, dtype, shape):
+    x, ct, a, b2 = _stats_inputs(shape, dtype, torch.Generator(device="cuda").manual_seed(3))
+    before = dict(rs.LAUNCHES)
+    y, s1, s2 = rs.relu_stats_fwd(x)
+    g = rs.relu_stats_bwd(x, ct, a, b2)
+    assert rs.LAUNCHES["relu_stats_fwd"] == before["relu_stats_fwd"] + 1
+    assert rs.LAUNCHES["relu_stats_bwd"] == before["relu_stats_bwd"] + 1
+    y_p, s1_p, s2_p = rs.relu_stats_fwd_plain(x)
+    assert torch.equal(y, y_p) and torch.equal(g, rs.relu_stats_bwd_plain(x, ct, a, b2))
+    assert rs.sums_within_tolerance(s1, s1_p)[0] and rs.sums_within_tolerance(s2, s2_p)[0]
+    assert y.is_contiguous(memory_format=torch.channels_last) and g.is_contiguous(memory_format=torch.channels_last)
+
+
+def test_relu_stats_kernels_reject_other_layouts_and_dtypes(cuda):
+    x, ct, a, b2 = _stats_inputs((2, 8, 8, 16), torch.float32, torch.Generator(device="cuda").manual_seed(4))
+    with pytest.raises(ValueError, match="channels_last"):
+        rs.relu_stats_fwd(x.contiguous())
+    with pytest.raises(ValueError, match="dtype"):
+        rs.relu_stats_fwd(x.half())
+    with pytest.raises(ValueError, match="dtype"):
+        rs.relu_stats_bwd(x, ct, a.double(), b2)
+    with pytest.raises(ValueError, match="shape"):
+        rs.relu_stats_bwd(x, ct, a[:, :3], b2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 16, 16, 64), (3, 7, 9, 5), (2, 9, 7, 130), (1, 64, 64, 256)])
+def test_gram_kernel_within_tolerance(cuda, dtype, shape):
+    x = torch.relu(torch.randn(shape, generator=torch.Generator(device="cuda").manual_seed(5), device="cuda"))
+    x = x.to(dtype).permute(0, 3, 1, 2)
+    before = bg.LAUNCHES["gram_matrix"]
+    g = bg.gram_fwd(x)
+    assert bg.LAUNCHES["gram_matrix"] == before + 1
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ok, err = bg.within_tolerance(g, bg.gram_matrix_plain(x))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert ok, err
+    ok, err = bg.within_f64_tolerance(g, bg.gram_f64(x))
+    assert ok, err
+    assert torch.equal(g, g.transpose(1, 2))  # mirrored tiles
+
+
+def test_gram_kernel_rejects_other_layouts_and_dtypes(cuda):
+    x = torch.rand(2, 4, 8, 8, device="cuda")  # NCHW-contiguous
+    with pytest.raises(ValueError, match="channels_last"):
+        bg.gram_fwd(x)
+    with pytest.raises(ValueError, match="dtype"):
+        bg.gram_fwd(x.half().contiguous(memory_format=torch.channels_last))
+    assert bg.gram_matrix(x).shape == (2, 4, 4)  # the differentiable entry converts the layout
+
+
+def test_nst_paths_launch_the_kernels_as_derived(cuda):
+    """Stats taps: 4 x (epochs + 2) forward and 4 x epochs backward launches;
+    Gram loss: 4 x (epochs + 1) Gram launches."""
+    params = VGG19.init(torch.Generator().manual_seed(0), device="cuda")
+    c, s = torch.rand(2, 3, 32, 32, device="cuda"), torch.rand(2, 3, 32, 32, device="cuda")
+    before = dict(rs.LAUNCHES)
+    make_nst_fn(epochs=3, stats_taps=True, compute_dtype=torch.bfloat16)(params, c, s)
+    assert rs.LAUNCHES["relu_stats_fwd"] == before["relu_stats_fwd"] + 4 * 5
+    assert rs.LAUNCHES["relu_stats_bwd"] == before["relu_stats_bwd"] + 4 * 3
+    before = bg.LAUNCHES["gram_matrix"]
+    make_nst_fn(epochs=3, bn_loss=False, compute_dtype=torch.bfloat16)(params, c, s)
+    assert bg.LAUNCHES["gram_matrix"] == before + 4 * 4

@@ -138,14 +138,47 @@ def test_slice_matches_jax(slice_inputs):
     np.testing.assert_allclose(iou.numpy(), np.asarray(iou_j), atol=1e-2)
 
 
+def test_mask_and_crop_iris_matches_jax():
+    """RITnet (bundled weights) -> iris mask -> bbox crop -> RGB, against
+    the JAX entry point on the same frames: bboxes exact, crops 1e-5.  At
+    192 x 320 the bundled RITnet finds an iris in both frames."""
+    imgs, _, _ = tsyn.synthetic_eye_batch(2, 192, 320, num_users=2, seed=6)
+    imgs = (np.round(imgs * 255) / 255).astype(np.float32)
+    ir_j, m_j, bb_j = jiris.mask_and_crop_iris(jnp.asarray(imgs), JRITnet.pretrained(), out_size=(32, 32))
+    ir, m, bb = tiris.mask_and_crop_iris(torch.from_numpy(imgs), RITnet.pretrained(), out_size=(32, 32))
+    assert ir.shape == (2, 32, 32, 3) and m.shape == (2, 192, 320, 1)
+    assert (m.numpy() == np.asarray(m_j)).mean() >= 0.995
+    np.testing.assert_array_equal(bb.numpy(), np.asarray(bb_j))
+    np.testing.assert_allclose(ir.numpy(), np.asarray(ir_j), atol=1e-5)
+    assert m.sum(dim=(1, 2, 3)).min() > 100
+    with pytest.raises(NotImplementedError, match="connected"):
+        tiris.mask_and_crop_iris(torch.from_numpy(imgs), RITnet.pretrained(), use_area_opening=True)
+
+
+def test_make_ist_fn_matches_jax(slice_inputs):
+    """Extraction -> NST (2 closures) -> recomposition as one function."""
+    imgs, segs, style, vgg, _, _ = slice_inputs
+    s_ir = np.ascontiguousarray(style[:, :32, :32])
+    want = jiris.make_ist_fn(j_make_nst_fn(epochs=2))(vgg, jnp.asarray(imgs), jnp.asarray(segs), jnp.asarray(s_ir))
+    new, ir, res = tiris.make_ist_fn(make_nst_fn(epochs=2))(
+        from_jax(vgg), torch.from_numpy(imgs), torch.from_numpy(segs), torch.from_numpy(s_ir))
+    np.testing.assert_allclose(ir.numpy(), np.asarray(want[1]), atol=1e-5)
+    np.testing.assert_allclose(res.s_loss_hist.numpy(), np.asarray(want[2].s_loss_hist), rtol=1e-3)
+    assert np.mean(np.abs(new.numpy() - np.asarray(want[0]))) < 1e-4
+    np.testing.assert_allclose(new.numpy(), np.asarray(want[0]), atol=2e-2)
+
+
 def test_port_imports_no_jax():
     code = (
         "import sys\n"
         "import iris_style_transfer_tpu_torch\n"
         "from iris_style_transfer_tpu_torch import data, models, ops, pipelines, runtime, transfer, utils\n"
         "from iris_style_transfer_tpu_torch.workloads import ist_openeds2019, ist_openeds2020\n"
+        "from iris_style_transfer_tpu_torch.demos import iris_nst_demo, nst_demo\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'iris_style_transfer_tpu.'))]\n"
         "assert not bad and 'iris_style_transfer_tpu' not in sys.modules, bad\n"
+        "imaging = [m for m in sys.modules if m.split('.')[0] in ('PIL', 'cv2')]\n"
+        "assert not imaging, imaging\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
@@ -167,12 +200,21 @@ def test_main_refuses_what_it_cannot_run(tmp_path, monkeypatch):
 @pytest.mark.slow
 def test_main_runs_on_cpu(tmp_path, monkeypatch):
     """The port's main end to end on the synthetic twin (small frames)."""
+    _run_main(tmp_path, monkeypatch, [])
+
+
+@pytest.mark.slow
+def test_main_runs_with_stats_taps_on_cpu(tmp_path, monkeypatch):
+    _run_main(tmp_path, monkeypatch, ["--stats_taps", "on"])
+
+
+def _run_main(tmp_path, monkeypatch, extra):
     from iris_style_transfer_tpu_torch.workloads import ist_openeds2019 as wl
 
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(wl, "synthetic_openeds2019", lambda n_per_user=6, num_users=8, seed=0:
                         tsyn.synthetic_openeds2019(n_per_user, 3, seed=seed, height=H, width=W))
-    argv = ["-bs", "8", "--nst_epochs", "2", "--data_dir", str(tmp_path / "nodata"), "--device", "cpu"]
+    argv = ["-bs", "8", "--nst_epochs", "2", "--data_dir", str(tmp_path / "nodata"), "--device", "cpu", *extra]
     results = wl.main(argv)
     log = results[("test/", 1.0, 2)]
     for key in ("test/pre/c1/accu", "test/pre/c2/mis/f1", "test/post/c1/loss", "test/post/c2/mis/auc",

@@ -53,7 +53,7 @@ def _fill(shapes, rng, gain=2.0):
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
-def _jax_batch_body(eff, g1, g2, vgg, frames_u8, labels, valid, s_iris, epochs):
+def _jax_batch_body(eff, g1, g2, vgg, frames_u8, labels, valid, s_iris, epochs, stats_taps="auto"):
     """The JAX workload's per-batch programs, unchunked."""
     f32 = jnp.float32
     c = jnp.asarray(frames_u8).astype(f32) / 255.0
@@ -64,7 +64,7 @@ def _jax_batch_body(eff, g1, g2, vgg, frames_u8, labels, valid, s_iris, epochs):
     segs = apply(eff, c)
     pre = (est1(g1, segs), est2(g2, c))
     irises, masks, bboxes = jax.jit(jiris.extract_iris_batch)(c, segs)
-    nst = j_cached_nst_program(epochs, 1.0, 1.0, "float32")
+    nst = j_cached_nst_program(epochs, 1.0, 1.0, "float32", stats_taps=stats_taps)
     s_batch = jnp.broadcast_to(j_gray_to_rgb(jnp.asarray(s_iris))[None], irises.shape)
     res = nst(vgg, irises, s_batch)
     new = jax.jit(jiris.composite_batch)(c, res.x, masks, bboxes)
@@ -93,6 +93,15 @@ def params():
 
 
 def test_batch_body_matches_jax(params, tmp_path, monkeypatch):
+    _check_batch_body(params, tmp_path, monkeypatch, "auto")
+
+
+def test_batch_body_with_stats_taps_matches_jax(params, tmp_path, monkeypatch):
+    """``--stats_taps on``: the fused relu+stats taps on both sides."""
+    _check_batch_body(params, tmp_path, monkeypatch, "on")
+
+
+def _check_batch_body(params, tmp_path, monkeypatch, stats_taps):
     eff, g1, g2, vgg = params
     imgs, _, _, labels = tsyn.synthetic_eye_batch(3, H, W, seed=5, gaze=True)
     s_iris = np.random.default_rng(9).random((224, 224, 1)).astype(np.float32)
@@ -111,7 +120,7 @@ def test_batch_body_matches_jax(params, tmp_path, monkeypatch):
 
     monkeypatch.setattr(wl, "cached_nst_program", capture)
     monkeypatch.chdir(tmp_path)
-    cfg = WorkloadConfig(bs=4, compute_dtype="float32")
+    cfg = WorkloadConfig(bs=4, compute_dtype="float32", stats_taps=stats_taps)
     te = from_jax(eff)
     logger = MetricLogger("t", "body", out_dir=str(tmp_path / "logs"))
     log = wl.iris_style_transfer_openeds2020(
@@ -122,7 +131,7 @@ def test_batch_body_matches_jax(params, tmp_path, monkeypatch):
 
     frames_u8 = np.round(np.concatenate([imgs, imgs[-1:]]) * 255.0).astype(np.uint8)  # the padded batch
     valid = np.array([True, True, True, False])
-    want, res_j, segs_j = _jax_batch_body(eff, g1, g2, vgg, frames_u8, labels, valid, s_iris, 2)
+    want, res_j, segs_j = _jax_batch_body(eff, g1, g2, vgg, frames_u8, labels, valid, s_iris, 2, stats_taps)
 
     (res,) = captured
     np.testing.assert_allclose(res.s_loss_hist.numpy(), np.asarray(res_j.s_loss_hist), rtol=1e-3)
@@ -149,8 +158,6 @@ def test_main_refuses_what_it_cannot_run(tmp_path, monkeypatch):
         wl.main(["--device", "cuda"])
     with pytest.raises(SystemExit, match="ROADMAP"):
         wl.main(["--device", "cpu", "--model_parallel", "2"])
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        wl.main(["--device", "cpu", "--stats_taps", "on"])
     (tmp_path / "data" / "openeds2020" / "openEDS2020-GazePrediction").mkdir(parents=True)
     with pytest.raises(SystemExit, match="ROADMAP"):
         wl.main(["--device", "cpu", "--data_dir", str(tmp_path / "data")])
@@ -159,10 +166,20 @@ def test_main_refuses_what_it_cannot_run(tmp_path, monkeypatch):
 @pytest.mark.slow
 def test_main_runs_on_cpu(tmp_path, monkeypatch):
     """The 2020 main end to end on the synthetic twin (small frames)."""
+    _run_main(tmp_path, monkeypatch, [])
+
+
+@pytest.mark.slow
+def test_main_runs_with_stats_taps_on_cpu(tmp_path, monkeypatch):
+    """The same with ``--stats_taps on``, which the main once refused."""
+    _run_main(tmp_path, monkeypatch, ["--stats_taps", "on"])
+
+
+def _run_main(tmp_path, monkeypatch, extra):
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(wl, "synthetic_eye_batch", lambda n, seed=0, gaze=False:
                         tsyn.synthetic_eye_batch(min(n, 6), H, W, seed=seed, gaze=gaze))
-    argv = ["-bs", "4", "--nst_epochs", "2", "--data_dir", str(tmp_path / "nodata"), "--device", "cpu"]
+    argv = ["-bs", "4", "--nst_epochs", "2", "--data_dir", str(tmp_path / "nodata"), "--device", "cpu", *extra]
     results = wl.main(argv)
     log = results[("validation/", 1.0, 2)]
     for key in ("validation//pre/degree_distance1", "validation//pre/degree_distance2",
