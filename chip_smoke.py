@@ -18,11 +18,15 @@ exit:
                ``ops/blockwise_gram.py``; the Gram at the 2019 relu1_1 and
                the 512-px bs-4 tap shapes, against a bmm with TF32 off),
                dw_conv_bn_silu within its tolerance (``ops/depthwise.py``)
-               at every distinct B7 shape of a 400x640 chunk; times each
-               against its plain version, in turns; checks with
-               torch.profiler that a VGG19 forward+backward (plain and with
-               stats taps), a Gram-loss closure and a B7 U-Net apply launch
-               them.
+               at every distinct B7 shape of a 400x640 chunk, conv1 within
+               one bf16 ulp (f32: 1e-5 of max|y|, also against an f64 conv;
+               ``ops/conv1.py``) at the 224-px bs-64 and 512-px bs-4 conv1_1
+               shapes and odd ones with C_in 1, 3 and 4; times each
+               against its plain version and, where one PyTorch call
+               computes the same function, that call, in turns; checks
+               with torch.profiler and the launch counts that a VGG19
+               forward (+backward, plain and with stats taps), a Gram-loss
+               closure and a B7 U-Net apply launch them.
   4. nst     — the production NST loop (bf16 compute, bf16 L-BFGS history,
                m = 10) at (64, 3, 224, 224) on seeded VGG19 weights, once
                with the classic BN taps and once with the stats taps (their
@@ -45,6 +49,19 @@ exit:
   7. demos   — ``demos.nst_demo --gram --sw 1e6 --size 512`` (exactly 4 x
                (closures + 1) Gram launches) and ``demos.iris_nst_demo``, in-process
                on the card, writing their PNGs to a temporary directory.
+  8. train2019 — ``workloads.iris_classification.main`` at full width
+               (VGG19 at 224x224, bs 64, bf16) on a twin of 8 users x 40
+               frames (4 steps per epoch): two epochs with VGG19 frozen,
+               one with ``--no-freeze_vgg``; conv1 and relu_pool launch
+               once per VGG19 pass, relu_pool_bwd once per trained step.
+               Then ``ist_openeds2019`` reads the trainer's checkpoint
+               through ``-path1/-path2``.
+  9. train_gaze — ``workloads.gaze_estimation.main`` with each estimator
+               at bs 32 (3 learning rates x 3 steps), then one timed
+               estimator-2 step at the JAX default bs 128 (or the largest
+               of 96 and 64 that fits) with its peak memory.
+
+In every main-path phase conv1 launches exactly once per VGG19 pass.
 
 The lines before the last are the kernel report ({"kernels": [...]}) and
 the nvidia-smi line; the last line is {"ok": true, "device": {...}}.
@@ -77,8 +94,27 @@ TAPS_2019 = ((64, 64, 224, 224), (64, 128, 112, 112), (64, 256, 56, 56), (64, 51
 TAPS_512 = ((4, 64, 512, 512), (4, 128, 256, 256), (4, 256, 128, 128), (4, 512, 64, 64))
 
 
+# NVIDIA's H100 SXM data sheet, dense: HBM bytes/s and the peak op rates
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+TRAIN_USERS, TRAIN_FRAMES_PER_USER = 8, 40  # the trainer's twin: 4 steps per epoch at bs 64
+
+
 def _log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+def _bound(nbytes: float, flops: float = 0.0, rate: str = "bf16") -> tuple[float, str]:
+    """The least time the card could take, in ms: the larger of the bytes
+    the function must move (each input read once, each output written once)
+    at the HBM rate and its operations at the peak rate of their type;
+    returns (ms, "bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[rate] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def phase_device():
@@ -96,10 +132,10 @@ def phase_device():
 
 
 def phase_build():
-    from iris_style_transfer_tpu_torch.ops import blockwise_gram, cuda_build, depthwise, relu_pool, relu_stats
+    from iris_style_transfer_tpu_torch.ops import blockwise_gram, conv1, cuda_build, depthwise, relu_pool, relu_stats
 
     t0 = time.perf_counter()
-    mods = (relu_pool, depthwise, relu_stats, blockwise_gram)
+    mods = (relu_pool, depthwise, relu_stats, blockwise_gram, conv1)
     with ThreadPoolExecutor(max_workers=len(mods)) as pool:  # one nvcc per source, together
         for f in [pool.submit(m._library) for m in mods]:
             f.result()
@@ -178,10 +214,15 @@ def phase_kernels(card: str):
         _check_pair(shape, dtype, gen)
         _log("kernels", f"{shape} {str(dtype)[6:]} fwd+bwd bit-exact vs plain")
 
+    import torch.nn.functional as F
+
     ms = _turns({"fwd_plain": lambda: rp.relu_pool_fwd_plain(x), "fwd": lambda: rp._kernel_fwd(x),
+                 "fwd_lib": lambda: torch.relu(F.max_pool2d(x, 2)),
                  "bwd_plain": lambda: rp.relu_pool_bwd_plain(x, y, ct), "bwd": lambda: rp._kernel_bwd(x, y, ct)})
+    bound_f, bound_b = _bound(_nbytes(x, y)), _bound(_nbytes(x, y, ct, x))
     _log("kernels", f"(64,224,224,64) bf16 ms/call on {card}: fwd {ms['fwd']:.4f} (plain "
-         f"{ms['fwd_plain']:.4f}), bwd {ms['bwd']:.4f} (plain {ms['bwd_plain']:.4f})")
+         f"{ms['fwd_plain']:.4f}, max_pool2d+relu {ms['fwd_lib']:.4f}, bound {bound_f[0]:.4f}), bwd {ms['bwd']:.4f} "
+         f"(plain {ms['bwd_plain']:.4f}, bound {bound_b[0]:.4f})")
     del x, ct, y
 
     # the main path launches the kernels: one VGG19 forward+backward traced
@@ -209,7 +250,7 @@ def phase_kernels(card: str):
                     if any(k in e.key for k in ("relu_pool_fwd_kernel", "relu_pool_bwd_kernel")))
     _log("kernels", f"profiler: relu_pool_fwd_kernel and relu_pool_bwd_kernel traced in one VGG19 "
          f"fwd+bwd at (64,3,224,224) bf16 ({device_us / 1000:.3f} ms device time)")
-    return {"err_fwd": err_f, "err_bwd": err_b, **ms}
+    return {"err_fwd": err_f, "err_bwd": err_b, "bound_fwd": bound_f, "bound_bwd": bound_b, **ms}
 
 
 def _b7_depthwise_shapes():
@@ -336,10 +377,13 @@ def phase_kernels_depthwise(card: str, chunk: int):
     # at the costliest shape
     x, wt, a, bias = _dw_inputs((chunk, 104, 160, 288), 3, torch.bfloat16, gen)
     ms = _turns({"plain": lambda: dw.dw_conv_bn_silu_plain(x, wt, a, bias, 3),
-                 "kernel": lambda: dw._kernel_fwd(x, wt, a, bias, 3)})
+                 "kernel": lambda: dw._kernel_fwd(x, wt, a, bias, 3),
+                 "library": lambda: torch.nn.functional.conv2d(x, wt, padding=1, groups=x.shape[1])})
     gbytes = 2 * x.numel() * x.element_size() / 1e9
+    bound = _bound(_nbytes(x, x, wt, a, bias), 2 * 9 * x.numel())
     _log("kernels", f"dw ({chunk},104,160,288) k3 bf16 ms/call on {card}: kernel {ms['kernel']:.4f} "
-         f"(plain {ms['plain']:.4f}); {gbytes / ms['kernel']:.2f} TB/s of x read once + y written once")
+         f"(plain {ms['plain']:.4f}, F.conv2d(groups=C) {ms['library']:.4f}, bound {bound[0]:.4f}); "
+         f"{gbytes / ms['kernel']:.2f} TB/s of x read once + y written once")
     del x, wt, a, bias
 
     agree = _b7_card_vs_cpu()
@@ -378,8 +422,8 @@ def phase_kernels_depthwise(card: str, chunk: int):
     _log("kernels", f"profiler: dw_conv_bn_silu_kernel traced {traced} times in one B7 U-Net apply at "
          f"({chunk},400,640,1) bf16 TTA ({dw_us / 1000:.3f} ms of {all_us / 1000:.3f} ms device time); "
          f"apply {apply_ms:.2f} ms; peak memory {peak_gb:.2f} GB on {card}")
-    return {"err": worst, "ms": ms["kernel"], "plain_ms": ms["plain"], "b7_apply_ms": apply_ms,
-            "b7_peak_gb": peak_gb}
+    return {"err": worst, "ms": ms["kernel"], "plain_ms": ms["plain"], "library_ms": ms["library"],
+            "bound": bound, "b7_apply_ms": apply_ms, "b7_peak_gb": peak_gb}
 
 
 def _stats_inputs(shape, dtype, gen):
@@ -435,10 +479,13 @@ def phase_kernels_relu_stats(card: str):
     ms = _turns({"fwd_plain": lambda: rs.relu_stats_fwd_plain(x), "fwd": lambda: rs._kernel_fwd(x),
                  "bwd_plain": lambda: rs.relu_stats_bwd_plain(x, ct, a, b2),
                  "bwd": lambda: rs._kernel_bwd(x, ct, a, b2)})
+    ms["bound_fwd"] = _bound(_nbytes(x, x, a, a))  # x read; y, s1 and s2 written
+    ms["bound_bwd"] = _bound(_nbytes(x, ct, a, b2, x))
     gb = x.numel() * x.element_size() / 1e9
     _log("kernels", f"relu_stats (64,64,224,224) bf16 ms/call on {card}: fwd {ms['fwd']:.4f} (plain "
-         f"{ms['fwd_plain']:.4f}; {2 * gb / ms['fwd']:.2f} TB/s of x read + y written), bwd {ms['bwd']:.4f} "
-         f"(plain {ms['bwd_plain']:.4f}; {3 * gb / ms['bwd']:.2f} TB/s of x, ct read + g written)")
+         f"{ms['fwd_plain']:.4f}, bound {ms['bound_fwd'][0]:.4f}; {2 * gb / ms['fwd']:.2f} TB/s of x read + y "
+         f"written), bwd {ms['bwd']:.4f} (plain {ms['bwd_plain']:.4f}, bound {ms['bound_bwd'][0]:.4f}; "
+         f"{3 * gb / ms['bwd']:.2f} TB/s of x, ct read + g written)")
     del x, ct, a, b2
 
     # the path launches them: one VGG19 forward+backward with stats taps
@@ -455,15 +502,20 @@ def phase_kernels_relu_stats(card: str):
 
     fwd_bwd()
     torch.cuda.synchronize()
+    before = dict(rs.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fwd_bwd()
         torch.cuda.synchronize()
-    counts = {k: sum(e.count for e in prof.key_averages() if k in e.key)
-              for k in ("relu_stats_fwd_kernel", "relu_stats_bwd_kernel")}
-    if counts != {"relu_stats_fwd_kernel": 4, "relu_stats_bwd_kernel": 4}:
-        raise AssertionError(f"one VGG19 fwd+bwd with stats taps traced {counts}; 4 of each expected")
-    _log("kernels", f"profiler: relu_stats_fwd_kernel and relu_stats_bwd_kernel traced 4 times each in one "
-         f"VGG19 fwd+bwd with stats taps at (64,3,224,224) bf16")
+    counted = {k: rs.LAUNCHES[k] - before[k] for k in before}
+    traced = {k: sum(e.count for e in prof.key_averages() if f"{k}_kernel" in e.key) for k in before}
+    if counted != {"relu_stats_fwd": 4, "relu_stats_bwd": 4} or min(traced.values()) == 0:
+        raise AssertionError(f"one VGG19 fwd+bwd with stats taps counted {counted} launches and traced {traced} "
+                             "kernels; 4 launches of each, each traced, expected")
+    # the profiler has traced fewer relu_stats_fwd kernels than were launched;
+    # every relu_stats event it keeps is listed, for the record
+    keys = {e.key[:60]: e.count for e in prof.key_averages() if "relu_stats" in e.key}
+    _log("kernels", f"one VGG19 fwd+bwd with stats taps at (64,3,224,224) bf16: {counted} launches counted, "
+         f"profiler traced {traced}; its relu_stats events {keys}")
     return {"err_fwd": worst["fwd"], "err_bwd": worst["bwd"], **ms}
 
 
@@ -506,13 +558,17 @@ def phase_kernels_gram(card: str):
         for shape in (TAPS_2019[0], TAPS_512[0]):
             b, c, h, w = shape
             x = torch.relu(torch.randn((b, h, w, c), generator=gen, device="cuda")).to(torch.bfloat16)
+            xf = x.reshape(b, h * w, c)  # the NHWC bytes as (B, HW, C), for the library bmm
             x = x.permute(0, 3, 1, 2)
-            t = _turns({"plain": lambda: bg.gram_matrix_plain(x), "kernel": lambda: bg._kernel_gram(x)})
+            t = _turns({"plain": lambda: bg.gram_matrix_plain(x), "kernel": lambda: bg._kernel_gram(x),
+                        "library": lambda: torch.bmm(xf.transpose(1, 2), xf)})
             gflop = 2 * b * h * w * c * c / 1e9
+            t["bound"] = _bound(_nbytes(x) + b * c * c * 4, gflop * 1e9)
             _log("kernels", f"gram {shape} bf16 ms/call on {card}: kernel {t['kernel']:.4f} (plain "
-                 f"{t['plain']:.4f}); {gflop / t['kernel']:.2f} TFLOP/s of the {gflop:.2f} GFLOP contraction")
+                 f"{t['plain']:.4f}, bf16 torch.bmm {t['library']:.4f}, bound {t['bound'][0]:.4f}); "
+                 f"{gflop / t['kernel']:.2f} TFLOP/s of the {gflop:.2f} GFLOP contraction")
             ms[shape] = t
-            del x
+            del x, xf
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
@@ -534,15 +590,108 @@ def phase_kernels_gram(card: str):
 
     closure()
     torch.cuda.synchronize()
+    before = bg.LAUNCHES["gram_matrix"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         closure()
         torch.cuda.synchronize()
+    counted = bg.LAUNCHES["gram_matrix"] - before
     traced = sum(e.count for e in prof.key_averages() if "gram_kernel" in e.key)
-    if traced != 4:
-        raise AssertionError(f"one Gram-loss closure traced gram_kernel {traced} times; 4 expected")
-    _log("kernels", "profiler: gram_kernel traced 4 times in one Gram-loss closure at (4,3,512,512) bf16")
+    if counted != 4 or traced == 0:
+        raise AssertionError(f"one Gram-loss closure counted {counted} gram launches and traced gram_kernel "
+                             f"{traced} times; 4 launches, traced, expected")
+    _log("kernels", f"one Gram-loss closure at (4,3,512,512) bf16: {counted} gram launches counted, profiler "
+         f"traced gram_kernel {traced} times")
     return {"err": worst, "ms": ms[TAPS_512[0]]["kernel"], "plain_ms": ms[TAPS_512[0]]["plain"],
+            "library_ms": ms[TAPS_512[0]]["library"], "bound": ms[TAPS_512[0]]["bound"],
             "ms_2019": ms[TAPS_2019[0]]["kernel"], "plain_ms_2019": ms[TAPS_2019[0]]["plain"]}
+
+
+def _conv1_inputs(shape, cout, dtype, gen):
+    import torch
+
+    b, cin, h, w = shape
+    x = torch.rand((b, h, w, cin), generator=gen, device="cuda").to(dtype).permute(0, 3, 1, 2)
+    wt = torch.randn((cout, cin, 3, 3), generator=gen, device="cuda") * 0.3
+    bias = torch.randn(cout, generator=gen, device="cuda")
+    return x, wt, bias
+
+
+def phase_kernels_conv1(card: str):
+    """conv1 against its plain version (and, in f32, an f64 conv) at the
+    main paths' shapes and odd ones; timing against cuDNN's F.conv2d; and
+    one launch per VGG19 pass under the profiler."""
+    import torch
+    import torch.nn.functional as F
+    from iris_style_transfer_tpu_torch.models import VGG19
+    from iris_style_transfer_tpu_torch.ops import conv1 as c1
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    cases = [((64, 3, 224, 224), 64, torch.bfloat16, "2019 NST, main and trainer at bs 64"),
+             ((4, 3, 512, 512), 64, torch.bfloat16, "the Gram demo"),
+             ((3, 3, 37, 53), 64, torch.float32, "odd"), ((3, 1, 13, 29), 64, torch.bfloat16, "C_in 1"),
+             ((3, 1, 13, 29), 64, torch.float32, "C_in 1"), ((3, 4, 13, 29), 64, torch.float32, "C_in 4"),
+             ((3, 4, 13, 29), 40, torch.bfloat16, "C_in 4, C_out 40")]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    worst = 0.0
+    try:
+        for shape, cout, dtype, what in cases:
+            x, wt, bias = _conv1_inputs(shape, cout, dtype, gen)
+            y_k = c1._kernel_fwd(x, wt, bias)
+            y_p = c1.conv1_fwd_plain(x, wt, bias)
+            y_lib = F.conv2d(x, wt.to(dtype), bias.to(dtype), padding=1)  # cuDNN, bias in the input dtype
+            torch.cuda.synchronize()
+            ok, err = c1.within_tolerance(y_k, y_p)
+            scale = y_p.float().abs().max().item()
+            equal = (y_k == y_p).float().mean().item()
+            msg = f"max_abs_err {err:.3g} (max|y| {scale:.4g}), {100 * equal:.4f}% equal"
+            if dtype == torch.float32:
+                y64 = F.conv2d(x.double(), wt.double(), bias.double(), padding=1)
+                e64 = (y_k.double() - y64).abs().max().item()
+                ok = ok and e64 <= 1e-5 * scale
+                msg += f"; vs f64 {e64:.3g} (bound {1e-5 * scale:.3g})"
+            else:
+                msg += f"; cuDNN bf16 F.conv2d equals the kernel on {100 * (y_k == y_lib).float().mean().item():.2f}%"
+            if not ok:
+                raise AssertionError(f"conv1 kernel out of tolerance at {shape} -> {cout} {dtype}: {msg}")
+            worst = max(worst, err)
+            _log("kernels", f"conv1 {shape}->{cout} {str(dtype)[6:]} ({what}): {msg}, within tolerance")
+            del x, wt, bias, y_k, y_p, y_lib
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+    x, wt, bias = _conv1_inputs((64, 3, 224, 224), 64, torch.bfloat16, gen)
+    w16, b16 = wt.to(torch.bfloat16), bias.to(torch.bfloat16)
+    ms = _turns({"plain": lambda: c1.conv1_fwd_plain(x, wt, bias), "kernel": lambda: c1._kernel_fwd(x, wt, bias),
+                 "library": lambda: F.conv2d(x, w16, b16, padding=1)})
+    y = c1._kernel_fwd(x, wt, bias)
+    flops = 2 * y.numel() * 9 * x.shape[1]
+    ms["bound"] = _bound(_nbytes(x, y, w16, b16), flops)
+    fma_ms = flops / PEAK_FLOPS["f32"] * 1e3
+    _log("kernels", f"conv1 (64,3,224,224)->64 bf16 ms/call on {card}: kernel {ms['kernel']:.4f} (plain "
+         f"{ms['plain']:.4f}, cuDNN F.conv2d {ms['library']:.4f}); bound {ms['bound'][0]:.4f} ms by "
+         f"{ms['bound'][1]}, {flops / 1e9:.2f} GFLOP as f32 FMA on the CUDA cores {fma_ms:.4f} ms; "
+         f"{_nbytes(x, y) / ms['kernel'] / 1e9:.2f} TB/s")
+    del x, wt, bias, y
+
+    from torch.profiler import ProfilerActivity, profile
+
+    params = VGG19.init(torch.Generator().manual_seed(SEED), device="cuda")
+    img = torch.rand((64, 3, 224, 224), generator=gen, device="cuda")
+    with torch.no_grad():
+        VGG19.apply(params, img, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        before = c1.LAUNCHES["conv1"]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            VGG19.apply(params, img, compute_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+    traced = sum(e.count for e in prof.key_averages() if "conv1_kernel" in e.key)
+    if traced == 0 or c1.LAUNCHES["conv1"] - before != 1:
+        raise AssertionError(f"one VGG19 pass traced conv1_kernel {traced} times, counted "
+                             f"{c1.LAUNCHES['conv1'] - before} launches; 1 launch, traced, expected")
+    _log("kernels", f"one VGG19 forward at (64,3,224,224) bf16: 1 conv1 launch counted, profiler traced {traced}")
+    return {"err": worst, "ms": ms["kernel"], "plain_ms": ms["plain"], "library_ms": ms["library"],
+            "bound": ms["bound"]}
 
 
 def _nst_loop(make_kw: dict, shape, closures: int, seed: int):
@@ -552,6 +701,7 @@ def _nst_loop(make_kw: dict, shape, closures: int, seed: int):
     falls."""
     import torch
     from iris_style_transfer_tpu_torch.models import VGG19
+    from iris_style_transfer_tpu_torch.ops import conv1 as c1
     from iris_style_transfer_tpu_torch.transfer.nst import make_nst_fn
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -562,6 +712,7 @@ def _nst_loop(make_kw: dict, shape, closures: int, seed: int):
     make_nst_fn(epochs=1, **kw)(params, c, s)  # warm-up closure
     torch.cuda.synchronize()
     fn = make_nst_fn(epochs=closures, **kw)
+    c1.LAUNCHES["conv1"] = 0
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -570,6 +721,8 @@ def _nst_loop(make_kw: dict, shape, closures: int, seed: int):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    if c1.LAUNCHES["conv1"] != closures + 2:  # the content and style targets, then one pass per closure
+        raise AssertionError(f"NST {make_kw}: conv1 launched {c1.LAUNCHES['conv1']} times; {closures} + 2 expected")
     s_hist, c_hist = res.s_loss_hist.cpu(), res.c_loss_hist.cpu()
     if not (torch.isfinite(s_hist).all() and torch.isfinite(c_hist).all() and torch.isfinite(res.x).all()):
         raise AssertionError(f"NST {make_kw} loss history or image is not finite")
@@ -619,6 +772,12 @@ def phase_nst_gram(card: str):
     return rate
 
 
+def _reset(counters) -> None:
+    for counts in counters:
+        for k in counts:
+            counts[k] = 0
+
+
 def _run_main(wl, argv: list[str], counters: tuple[dict, ...]):
     """``wl.main(argv)`` in a temporary directory, every count in
     ``counters`` set to 0 just before and read just after; also counts the
@@ -641,9 +800,7 @@ def _run_main(wl, argv: list[str], counters: tuple[dict, ...]):
         os.chdir(tmp)
         wl.cached_nst_program = counting
         try:
-            for counts in counters:
-                for k in counts:
-                    counts[k] = 0
+            _reset(counters)
             t0 = time.perf_counter()
             results = wl.main([*argv, "--data_dir", os.path.join(tmp, "no_data"), "--device", "cuda"])
             torch.cuda.synchronize()
@@ -655,13 +812,16 @@ def _run_main(wl, argv: list[str], counters: tuple[dict, ...]):
     return results, launches, calls[0], wall
 
 
-def _check_launches(where: str, launches: dict, nst_calls: int, stats_taps: bool) -> None:
-    """Every kernel of the path launched; with stats taps, exactly 4 style
-    taps x (content pass + style pass + one per closure) forward and 4 x
-    closures backward per NST call."""
+def _check_launches(where: str, launches: dict, nst_calls: int, stats_taps: bool, vgg_passes: int) -> None:
+    """Every kernel of the path launched; conv1 once per VGG19 pass; with
+    stats taps, exactly 4 style taps x (content pass + style pass + one per
+    closure) forward and 4 x closures backward per NST call."""
     for k, n in launches.items():
         if n == 0 and (stats_taps or not k.startswith("relu_stats")):
             raise AssertionError(f"{k} was never launched by {where}")
+    if launches["conv1"] != vgg_passes:
+        raise AssertionError(f"{where} launched conv1 {launches['conv1']} times; one per VGG19 pass, "
+                             f"{vgg_passes}, expected")
     if stats_taps:
         want = {"relu_stats_fwd": 4 * (MAIN_CLOSURES + 2) * nst_calls, "relu_stats_bwd": 4 * MAIN_CLOSURES * nst_calls}
         got = {k: launches[k] for k in want}
@@ -673,19 +833,21 @@ def _check_launches(where: str, launches: dict, nst_calls: int, stats_taps: bool
 
 
 def phase_main(card: str, stats_taps: bool = False):
+    from iris_style_transfer_tpu_torch.ops import conv1 as c1
     from iris_style_transfer_tpu_torch.ops import relu_pool as rp
     from iris_style_transfer_tpu_torch.ops import relu_stats as rs
     from iris_style_transfer_tpu_torch.workloads import ist_openeds2019 as wl
 
     argv = ["-bs", "64", "--nst_epochs", str(MAIN_CLOSURES)] + (["--stats_taps", "on"] if stats_taps else [])
-    results, launches, calls, _ = _run_main(wl, argv, (rp.LAUNCHES, rs.LAUNCHES))
+    results, launches, calls, _ = _run_main(wl, argv, (rp.LAUNCHES, rs.LAUNCHES, c1.LAUNCHES))
     log = results[("test/", 1.0, MAIN_CLOSURES)]
     keys = ["test/post/mean_miou", "test/stylized_images_per_min", "test/pipeline_images_per_min"]
     keys += [f"test/{p}/c{n}/{m}" for p in ("pre", "post") for n in (1, 2) for m in ("accu", "loss", "f1")]
     for k in keys:
         if k not in log or not math.isfinite(log[k]):
             raise AssertionError(f"workload metric {k} missing or not finite: {log.get(k)}")
-    _check_launches("the 2019 main", launches, calls, stats_taps)
+    # per batch: one NST call (closures + 2 passes) and the pre- and post-NST classification
+    _check_launches("the 2019 main", launches, calls, stats_taps, calls * (MAIN_CLOSURES + 4))
     _log("main", f"ist_openeds2019 bs 64, {MAIN_CLOSURES} closures, stats_taps {'on' if stats_taps else 'off'} "
          f"on {card}: stylized_images_per_min {log['test/stylized_images_per_min']:.1f}, "
          f"pipeline_images_per_min {log['test/pipeline_images_per_min']:.1f}, post mean_miou "
@@ -696,6 +858,7 @@ def phase_main(card: str, stats_taps: bool = False):
 
 def phase_main2020(card: str, b7_apply_ms: float, stats_taps: bool = False):
     import torch
+    from iris_style_transfer_tpu_torch.ops import conv1 as c1
     from iris_style_transfer_tpu_torch.ops import depthwise as dw
     from iris_style_transfer_tpu_torch.ops import relu_pool as rp
     from iris_style_transfer_tpu_torch.ops import relu_stats as rs
@@ -705,7 +868,7 @@ def phase_main2020(card: str, b7_apply_ms: float, stats_taps: bool = False):
     want_dw = 102 * (1 + 2 * bs // chunk)  # the style iris, then pre and post per chunk
     torch.cuda.reset_peak_memory_stats()
     argv = ["-bs", str(bs), "--nst_epochs", str(MAIN_CLOSURES)] + (["--stats_taps", "on"] if stats_taps else [])
-    results, launches, calls, wall = _run_main(wl, argv, (rp.LAUNCHES, dw.LAUNCHES, rs.LAUNCHES))
+    results, launches, calls, wall = _run_main(wl, argv, (rp.LAUNCHES, dw.LAUNCHES, rs.LAUNCHES, c1.LAUNCHES))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log = results[("validation/", 1.0, MAIN_CLOSURES)]
     keys = [f"validation//{p}/degree_distance{i}" for p in ("pre", "post") for i in (1, 2)]
@@ -713,7 +876,7 @@ def phase_main2020(card: str, b7_apply_ms: float, stats_taps: bool = False):
     for k in keys:
         if k not in log or not math.isfinite(log[k]):
             raise AssertionError(f"workload metric {k} missing or not finite: {log.get(k)}")
-    _check_launches("the 2020 main", launches, calls, stats_taps)
+    _check_launches("the 2020 main", launches, calls, stats_taps, calls * (MAIN_CLOSURES + 2))
     if launches["dw_conv_bn_silu"] != want_dw:
         raise AssertionError(f"dw_conv_bn_silu launched {launches['dw_conv_bn_silu']} times in the 2020 "
                              f"main; 102 x (1 + 2 x {bs}/{chunk}) = {want_dw} expected")
@@ -731,20 +894,172 @@ def phase_main2020(card: str, b7_apply_ms: float, stats_taps: bool = False):
     return launches
 
 
+def _train_run(main, argv: list[str], counters) -> tuple[dict, dict, float, float]:
+    """``main(argv)`` on the card in the current directory, every count in
+    ``counters`` set to 0 just before and read just after; returns
+    (metrics, launches, wall seconds, peak GB)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset(counters)
+    t0 = time.perf_counter()
+    log = main([*argv, "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for counts in counters for k, v in counts.items()}
+    return log, launches, wall, torch.cuda.max_memory_allocated() / 1e9
+
+
+def phase_train2019(card: str):
+    """The port's iris_classification main at full width (VGG19 at 224x224,
+    bs 64, bf16) on a twin of 8 users x 40 frames: two epochs with VGG19
+    frozen, saving the heads; one epoch with --no-freeze_vgg; then the 2019
+    IST main reading the trainer's checkpoint through -path1/-path2."""
+    from iris_style_transfer_tpu_torch.data import synthetic_openeds2019
+    from iris_style_transfer_tpu_torch.ops import conv1 as c1
+    from iris_style_transfer_tpu_torch.ops import relu_pool as rp
+    from iris_style_transfer_tpu_torch.ops import relu_stats as rs
+    from iris_style_transfer_tpu_torch.workloads import ist_openeds2019 as ist
+    from iris_style_transfer_tpu_torch.workloads import iris_classification as wl
+
+    bs = 64
+    real_twin = wl.synthetic_openeds2019
+    cwd = os.getcwd()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        twins: dict = {}  # made once, for both runs and the counts below
+        wl.synthetic_openeds2019 = lambda n_per_user=8, num_users=8, seed=0: twins.setdefault(
+            seed, synthetic_openeds2019(n_per_user=TRAIN_FRAMES_PER_USER, num_users=TRAIN_USERS, seed=seed))
+        try:
+            _, train_y, _, _, test_y, _, _ = wl.synthetic_openeds2019(seed=42)  # the mains' default seed
+            steps, test_batches = len(train_y) // bs, -(-len(test_y) // bs)
+            nodata = ["--data_dir", os.path.join(tmp, "no_data")]
+            for name, argv, epochs in (("frozen", ["-E", "2", "-SP", "2"], 2),
+                                       ("trained", ["--no-freeze_vgg", "-E", "1", "-SP", "-1"], 1)):
+                log, launches, wall, peak = _train_run(wl.main, ["-bs", str(bs), *argv, *nodata],
+                                                       (c1.LAUNCHES, rp.LAUNCHES, rs.LAUNCHES))
+                for k in ("train/c1/accu", "train/c2/loss", "test/c1/accu", "test/c2/accu", "test/c1/auc",
+                          "train/steps_per_sec"):
+                    if k not in log or not math.isfinite(log[k]):
+                        raise AssertionError(f"iris_classification ({name}) metric {k} missing or not finite")
+                want = {"conv1": epochs * (steps + test_batches), "relu_pool_fwd": epochs * (steps + test_batches),
+                        "relu_pool_bwd": epochs * steps if name == "trained" else 0,
+                        "relu_stats_fwd": 0, "relu_stats_bwd": 0}
+                if launches != want:
+                    raise AssertionError(f"iris_classification ({name}) launched {launches}; {want} expected")
+                sps = log["train/steps_per_sec"]
+                _log("train2019", f"iris_classification {name} VGG19, bs {bs}, {epochs} epoch(s) of {steps} steps "
+                     f"+ {test_batches} test batch(es) on {card}: {sps:.3f} train steps/s = {sps * bs:.1f} "
+                     f"images/s; peak memory {peak:.2f} GB; launches {launches}; test/c1/accu "
+                     f"{log['test/c1/accu']:.4f}, test/c2/accu {log['test/c2/accu']:.4f}; main {wall:.1f} s")
+                out[name] = {"steps_per_sec": sps, "launches": launches, "peak_gb": peak}
+
+            ckpt = os.path.join(tmp, "saved", "checkpoints", "iris_classification")
+            if not os.path.exists(os.path.join(ckpt, "step_00000002.npz")):
+                raise AssertionError(f"the trainer wrote no step_00000002.npz under {ckpt}")
+            results = ist.main(["-bs", "64", "--nst_epochs", str(MAIN_CLOSURES), "-path1", ckpt, "-path2", ckpt,
+                                *nodata, "--device", "cuda"])
+            log = results[("test/", 1.0, MAIN_CLOSURES)]
+            for k in ("test/pre/c1/accu", "test/pre/c2/accu"):
+                if k not in log or not math.isfinite(log[k]):
+                    raise AssertionError(f"the 2019 IST main with the trainer's heads: {k} missing or not finite")
+            _log("train2019", f"ist_openeds2019 with -path1/-path2 = the trainer's checkpoint, {MAIN_CLOSURES} "
+                 f"closures: test/pre/c1/accu {log['test/pre/c1/accu']:.4f}, test/pre/c2/accu "
+                 f"{log['test/pre/c2/accu']:.4f}, test/post/c1/accu {log['test/post/c1/accu']:.4f}, "
+                 f"test/post/c2/accu {log['test/post/c2/accu']:.4f}")
+        finally:
+            wl.synthetic_openeds2019 = real_twin
+            os.chdir(cwd)
+    return out
+
+
+def phase_train_gaze(card: str):
+    """The port's gaze_estimation main on the gaze twin (96 training
+    frames, bs 32, three learning rates): estimator 1 on the landmarks,
+    estimator 2 with its ResNet50 trunk trained at 400x640 in bf16; then one
+    timed estimator-2 step at the JAX default bs 128."""
+    import torch
+    from iris_style_transfer_tpu_torch.models import GazeEstimator2
+    from iris_style_transfer_tpu_torch.ops import conv1 as c1
+    from iris_style_transfer_tpu_torch.workloads import gaze_estimation as wl
+    from iris_style_transfer_tpu_torch.workloads.iris_classification import trainable
+
+    cwd = os.getcwd()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for est, extra in (("1", ["-SP", "1"]), ("2", [])):
+                log, launches, wall, peak = _train_run(
+                    wl.main, ["-estimator", est, "-bs", "32", "-E", "1", *extra, "--data_dir",
+                              os.path.join(tmp, "no_data")], (c1.LAUNCHES,))
+                for k in ("train/loss", "train/degree_distance", "valid/loss", "valid/degree_distance",
+                          "train/steps_per_sec"):
+                    if k not in log or not math.isfinite(log[k]):
+                        raise AssertionError(f"gaze_estimation -estimator {est}: metric {k} missing or not finite")
+                if launches["conv1"]:
+                    raise AssertionError(f"gaze_estimation runs no VGG19 but launched conv1 {launches['conv1']} times")
+                sps = log["train/steps_per_sec"]
+                _log("train_gaze", f"gaze_estimation -estimator {est} -bs 32 -E 1 (3 lrs x 3 steps) on {card}: "
+                     f"{sps:.3f} train steps/s of the last lr = {sps * 32:.1f} frames/s; valid/degree_distance "
+                     f"{log['valid/degree_distance']:.2f}; peak memory {peak:.2f} GB; main {wall:.1f} s")
+                out[f"estimator{est}"] = {"steps_per_sec": sps, "peak_gb": peak}
+        finally:
+            os.chdir(cwd)
+
+    # one estimator-2 step at the JAX default batch on raw uint8 frames
+    train_step, _ = wl.make_steps(2, torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for bs in (128, 96, 64):
+        params = GazeEstimator2.init(torch.Generator().manual_seed(SEED), extract_feature=True, device="cuda")
+        opt = torch.optim.Adam(trainable(params), lr=1e-4)
+        x = torch.randint(0, 256, (bs, 400, 640, 1), generator=gen, device="cuda", dtype=torch.uint8)
+        y = torch.nn.functional.normalize(torch.randn((bs, 3), generator=gen, device="cuda"), dim=1)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fits = True
+        try:  # the one caught error: this probe measures whether a batch fits the card
+            train_step(params, opt, x, y, gen)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(params, opt, x, y, gen)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        except torch.cuda.OutOfMemoryError:
+            fits = False
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del params, opt, x, y
+        torch.cuda.empty_cache()
+        if not fits:
+            _log("train_gaze", f"estimator 2 at bs {bs} (400x640 uint8, bf16 trunk): out of memory on {card} "
+                 f"(peak {peak:.2f} GB allocated before the failed allocation)")
+            continue
+        _log("train_gaze", f"estimator 2, one train step at bs {bs} on ({bs},400,640,1) uint8, bf16 trunk: "
+             f"{dt * 1e3:.1f} ms = {bs / dt:.1f} frames/s; peak memory {peak:.2f} GB on {card}")
+        out["step"] = {"bs": bs, "ms": dt * 1e3, "peak_gb": peak}
+        break
+    if "step" not in out:
+        raise AssertionError("estimator 2 fit no batch of 128, 96 or 64 frames")
+    return out
+
+
 def phase_demos(card: str):
     """Both demos in-process on the card, into a temporary directory."""
     from iris_style_transfer_tpu_torch.demos import iris_nst_demo, nst_demo
     from iris_style_transfer_tpu_torch.ops import blockwise_gram as bg
+    from iris_style_transfer_tpu_torch.ops import conv1 as c1
 
     with tempfile.TemporaryDirectory() as tmp:
         bg.LAUNCHES["gram_matrix"] = 0
+        c1.LAUNCHES["conv1"] = 0
         out = os.path.join(tmp, "nst.png")
         res = nst_demo.main(["--gram", "--sw", str(GRAM_STYLE_WEIGHT), "--size", "512", "--epochs",
                              str(DEMO_CLOSURES), "--out", out, "--device", "cuda"])
         gram_launches = bg.LAUNCHES["gram_matrix"]
-        if gram_launches != 4 * (DEMO_CLOSURES + 1):
-            raise AssertionError(f"nst_demo --gram launched the Gram kernel {gram_launches} times; "
-                                 f"4 x ({DEMO_CLOSURES} + 1) expected")
+        if gram_launches != 4 * (DEMO_CLOSURES + 1) or c1.LAUNCHES["conv1"] != DEMO_CLOSURES + 2:
+            raise AssertionError(f"nst_demo --gram launched the Gram kernel {gram_launches} times and conv1 "
+                                 f"{c1.LAUNCHES['conv1']}; 4 x ({DEMO_CLOSURES} + 1) and {DEMO_CLOSURES} + 2 expected")
         s_hist = res.s_loss_hist.cpu()
         if not (os.path.getsize(out) > 0 and s_hist.isfinite().all() and s_hist[-1] < s_hist[0]):
             raise AssertionError(f"nst_demo --gram: PNG {os.path.exists(out)}, s_loss {s_hist.tolist()}")
@@ -765,6 +1080,7 @@ def phase_demos(card: str):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     smi = phase_device()
     import torch
 
@@ -776,6 +1092,7 @@ def main() -> int:
     kd = phase_kernels_depthwise(card, SEG_CHUNK)
     ks = phase_kernels_relu_stats(card)
     kg = phase_kernels_gram(card)
+    kc = phase_kernels_conv1(card)
     _, c_hist, s_hist = phase_nst(card)
     _, c_hist_st, s_hist_st = phase_nst(card, stats_taps=True)
     _compare_histories(s_hist, s_hist_st)
@@ -785,32 +1102,33 @@ def main() -> int:
     launches2020 = phase_main2020(card, kd["b7_apply_ms"])
     launches2020_st = phase_main2020(card, kd["b7_apply_ms"], stats_taps=True)
     gram_launches = phase_demos(card)
+    train = phase_train2019(card)
+    phase_train_gaze(card)
     src = "iris_style_transfer_tpu_torch/ops/csrc/"
     stats_fwd = launches_st["relu_stats_fwd"] + launches2020_st["relu_stats_fwd"]
     stats_bwd = launches_st["relu_stats_bwd"] + launches2020_st["relu_stats_bwd"]
+    def row(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms):
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": "iris_style_transfer_tpu/ops/" + replaces, "launches": launches, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms}
+
     report = {"kernels": [
-        {"name": "relu_pool_fwd", "route": "cuda", "source": src + "relu_pool.cu",
-         "replaces": "iris_style_transfer_tpu/ops/pallas_pool_paired.py:640",
-         "launches": launches["relu_pool_fwd"], "max_abs_err": k["err_fwd"],
-         "ms": k["fwd"], "plain_ms": k["fwd_plain"]},
-        {"name": "relu_pool_bwd", "route": "cuda", "source": src + "relu_pool.cu",
-         "replaces": "iris_style_transfer_tpu/ops/pallas_pool_paired.py:652",
-         "launches": launches["relu_pool_bwd"], "max_abs_err": k["err_bwd"],
-         "ms": k["bwd"], "plain_ms": k["bwd_plain"]},
-        {"name": "dw_conv_bn_silu", "route": "cuda", "source": src + "depthwise.cu",
-         "replaces": "iris_style_transfer_tpu/ops/pallas_depthwise.py:136",
-         "launches": launches2020["dw_conv_bn_silu"], "max_abs_err": kd["err"],
-         "ms": kd["ms"], "plain_ms": kd["plain_ms"]},
-        {"name": "gram_matrix", "route": "cuda", "source": src + "gram.cu",
-         "replaces": "iris_style_transfer_tpu/ops/pallas_gram.py:51",
-         "launches": gram_launches, "max_abs_err": kg["err"], "ms": kg["ms"], "plain_ms": kg["plain_ms"]},
-        {"name": "relu_stats_fwd", "route": "cuda", "source": src + "relu_stats.cu",
-         "replaces": "iris_style_transfer_tpu/ops/pallas_relu_stats.py:159",
-         "launches": stats_fwd, "max_abs_err": ks["err_fwd"], "ms": ks["fwd"], "plain_ms": ks["fwd_plain"]},
-        {"name": "relu_stats_bwd", "route": "cuda", "source": src + "relu_stats.cu",
-         "replaces": "iris_style_transfer_tpu/ops/pallas_relu_stats.py:175",
-         "launches": stats_bwd, "max_abs_err": ks["err_bwd"], "ms": ks["bwd"], "plain_ms": ks["bwd_plain"]},
+        row("relu_pool_fwd", "relu_pool.cu", "pallas_pool_paired.py:640", launches["relu_pool_fwd"], k["err_fwd"],
+            k["fwd"], k["fwd_plain"], k["bound_fwd"], k["fwd_lib"]),
+        row("relu_pool_bwd", "relu_pool.cu", "pallas_pool_paired.py:652", launches["relu_pool_bwd"], k["err_bwd"],
+            k["bwd"], k["bwd_plain"], k["bound_bwd"], None),
+        row("dw_conv_bn_silu", "depthwise.cu", "pallas_depthwise.py:136", launches2020["dw_conv_bn_silu"],
+            kd["err"], kd["ms"], kd["plain_ms"], kd["bound"], kd["library_ms"]),
+        row("gram_matrix", "gram.cu", "pallas_gram.py:51", gram_launches, kg["err"], kg["ms"], kg["plain_ms"],
+            kg["bound"], kg["library_ms"]),
+        row("relu_stats_fwd", "relu_stats.cu", "pallas_relu_stats.py:159", stats_fwd, ks["err_fwd"], ks["fwd"],
+            ks["fwd_plain"], ks["bound_fwd"], None),
+        row("relu_stats_bwd", "relu_stats.cu", "pallas_relu_stats.py:175", stats_bwd, ks["err_bwd"], ks["bwd"],
+            ks["bwd_plain"], ks["bound_bwd"], None),
+        row("conv1", "conv1.cu", "pallas_conv1.py:143", train["frozen"]["launches"]["conv1"], kc["err"], kc["ms"],
+            kc["plain_ms"], kc["bound"], kc["library_ms"]),
     ]}
+    _log("done", f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(report))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

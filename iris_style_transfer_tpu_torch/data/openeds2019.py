@@ -1,12 +1,18 @@
-"""OpenEDS2019 IST dataset construction on the device.
+"""OpenEDS2019 dataset construction on the device.
 
-Counterpart of ``iris_style_transfer_tpu/data/openeds2019.py``
-(``build_ist_dataset``, ``ISTDataset``, ``sample_other``; reference
-``data_preprocessing.py:110-251``): per content frame, RITnet
-segmentation, pre-NST IoUs against the ground truth, the iris mask and
-bbox, and a style donor drawn from another user.  Donor sampling uses the
-host ``random`` module in the same call order as the JAX package, so a
-seed picks the same donors in both.
+Counterpart of ``iris_style_transfer_tpu/data/openeds2019.py``:
+  * ``build_ist_dataset``, ``ISTDataset``, ``sample_other`` (reference
+    ``data_preprocessing.py:110-251``): per content frame, RITnet
+    segmentation, pre-NST IoUs against the ground truth, the iris mask and
+    bbox, and a style donor drawn from another user.  Donor sampling uses
+    the host ``random`` module in the same call order as the JAX package,
+    so a seed picks the same donors in both.
+  * ``build_ir_dataset`` (reference ``data_preprocessing.py:15-108``), the
+    classifier training set: per frame the iris mask times the glint mask,
+    the 224x224 crop of its bbox, the optional random rotation and
+    perspective (``_augment_one``), and u16 quantization.  The random
+    draws come from a ``torch.Generator``, so their stream is not
+    ``jax.random``'s.
 
 Loading the real OpenEDS data from disk is not ported yet (ROADMAP); the
 workload runs on the synthetic twin.
@@ -27,8 +33,12 @@ from ..ops.image import (
     nonzero_bbox,
     pack_labels2,
     pack_mask_bits,
+    perspective_warp,
     quantize_u8,
     quantize_u16,
+    random_perspective_params,
+    random_rotation_params,
+    rotate,
     to_unit_float,
 )
 from ..ops.metrics import iou_per_class
@@ -118,3 +128,58 @@ def build_ist_dataset(
         s_labels=np.asarray(c_labels, np.int32)[s_idx],
         ious_dev=ious,
     )
+
+
+def _augment_one(img: torch.Tensor, gen: torch.Generator, rotation_prob: float, rotation_degree: float,
+                 perspect_prob: float, perspect_degree: float) -> torch.Tensor:
+    """Random rotation (nearest) with probability ``rotation_prob``, then a
+    random perspective (bilinear) with probability ``perspect_prob``, of one
+    (H, W, C) crop; ``gen`` is a CPU generator, so the draws and the
+    branches stay on the host."""
+    h, w, _ = img.shape
+    if torch.rand((), generator=gen).item() < rotation_prob:
+        img = rotate(img, random_rotation_params(gen, rotation_degree).to(img.device), mode="nearest")
+    if torch.rand((), generator=gen).item() < perspect_prob:
+        sp, ep = random_perspective_params(gen, h, w, perspect_degree)
+        img = perspective_warp(img, sp.to(img.device), ep.to(img.device), mode="bilinear")
+    return img
+
+
+@torch.no_grad()
+def build_ir_dataset(
+    xs: list[np.ndarray],
+    ys: list[int],
+    ritnet_params: dict,
+    gen: torch.Generator,
+    rotation_prob: float = 0.0,
+    rotation_degree: float = 180.0,
+    perspect_prob: float = 0.0,
+    perspect_degree: float = 0.3,
+    glint_threshold: float = 0.8,
+    out_size: tuple[int, int] = (224, 224),
+    chunk: int = 32,
+    device="cpu",
+) -> tuple[np.ndarray, np.ndarray]:
+    """Iris crops for classifier training, in chunks of ``chunk`` frames on
+    ``device``: RITnet, the iris and glint masks, the bbox crop resized to
+    ``out_size``, the optional augmentation, u16 quantization.  The chunks
+    are concatenated on the device and fetched once.  Returns (N, oh, ow, 1)
+    uint16 crops (dequantize with ``ops.image.to_unit_float``) and (N,)
+    int32 labels."""
+    if len(xs) != len(ys):
+        raise ValueError("xs and ys must have the same length")
+    augment = rotation_prob > 0 or perspect_prob > 0
+    parts = []
+    for i in range(0, len(xs), chunk):
+        frames = to_unit_float(torch.from_numpy(quantize_u8(np.stack(xs[i : i + chunk]))).to(device))
+        seg = RITnet.apply(ritnet_params, frames)
+        masks = iris_mask_from_seg(seg, frames, glint_threshold)
+        masked = frames * masks.to(frames.dtype)
+        crops = crop_and_resize(masked, nonzero_bbox(masked[..., 0]), out_size)
+        if augment:
+            crops = torch.stack([_augment_one(c, gen, rotation_prob, rotation_degree, perspect_prob,
+                                              perspect_degree) for c in crops])
+        parts.append(quantize_u16(crops))
+    if not parts:
+        return np.zeros((0, *out_size, 1), np.uint16), np.asarray(ys, np.int32)
+    return torch.cat(parts).cpu().numpy(), np.asarray(ys, np.int32)

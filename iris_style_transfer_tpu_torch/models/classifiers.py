@@ -1,4 +1,4 @@
-"""Iris classifier heads (eval only).
+"""Iris classifier heads.
 
 Counterpart of ``iris_style_transfer_tpu/models/classifiers.py`` (reference
 ``models/classifiers/classifiers.py``):
@@ -6,7 +6,8 @@ Counterpart of ``iris_style_transfer_tpu/models/classifiers.py`` (reference
     -> 4096 -> num_class over the final VGG features.
   * Classifier2: per-layer channel-wise (mean || std) of the style taps,
     1920-d -> MLP 4096 -> 4096 -> num_class; std is Bessel-corrected.
-Dropout is inactive in eval, so it is not part of the port yet.
+Both put Dropout(0.5) after the first two ReLUs; ``train=True`` with a
+``torch.Generator`` turns it on (``models/layers.py:dropout``).
 """
 
 from __future__ import annotations
@@ -19,9 +20,9 @@ from . import layers as L
 STYLE_FEATURE_DIM = (64 + 128 + 256 + 512) * 2
 
 
-def _mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
-    x = torch.relu(L.linear(x, params["fc0"]))
-    x = torch.relu(L.linear(x, params["fc1"]))
+def _mlp(params: dict, x: torch.Tensor, train: bool = False, gen: torch.Generator | None = None) -> torch.Tensor:
+    x = L.dropout(torch.relu(L.linear(x, params["fc0"])), 0.5, gen, train)
+    x = L.dropout(torch.relu(L.linear(x, params["fc1"])), 0.5, gen, train)
     return L.linear(x, params["fc2"])
 
 
@@ -39,10 +40,11 @@ class Classifier1:
         return _init_mlp(gen, 512 * 7 * 7, num_class, device)
 
     @staticmethod
-    def apply(params: dict, feats: torch.Tensor) -> torch.Tensor:
+    def apply(params: dict, feats: torch.Tensor, train: bool = False,
+              gen: torch.Generator | None = None) -> torch.Tensor:
         """feats: (B, 512, H, W) final VGG features -> (B, num_class) logits."""
         x = L.adaptive_avg_pool(feats, (7, 7))
-        return _mlp(params, x.reshape(x.shape[0], -1))  # NCHW flatten order
+        return _mlp(params, x.reshape(x.shape[0], -1), train, gen)  # NCHW flatten order
 
 
 class Classifier2:
@@ -61,5 +63,6 @@ class Classifier2:
         return torch.cat(parts, dim=1)
 
     @staticmethod
-    def apply(params: dict, style_feats: list[torch.Tensor]) -> torch.Tensor:
-        return _mlp(params, Classifier2.features(style_feats))
+    def apply(params: dict, style_feats: list[torch.Tensor], train: bool = False,
+              gen: torch.Generator | None = None) -> torch.Tensor:
+        return _mlp(params, Classifier2.features(style_feats), train, gen)

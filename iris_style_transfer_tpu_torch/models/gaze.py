@@ -1,4 +1,4 @@
-"""Gaze estimators, inference only.
+"""Gaze estimators.
 
 Counterpart of ``iris_style_transfer_tpu/models/gaze.py`` (reference
 ``models/gaze_estimators/gaze_estimators.py``):
@@ -11,8 +11,9 @@ Counterpart of ``iris_style_transfer_tpu/models/gaze.py`` (reference
   * ``GazeEstimator2``: appearance-based; ResNet50 2048-d features -> MLP
     (64) -> normalized 3-d gaze.
 
-The MLPs are ``fc0 -> ReLU -> fc1 -> ReLU -> fc2``; dropout is the identity
-at inference, and training waits for the training mains (ROADMAP).
+The MLPs are ``fc0 -> ReLU -> Dropout(0.5) -> fc1 -> ReLU -> Dropout(0.5)
+-> fc2``; ``train=True`` with a ``torch.Generator`` turns the dropout on
+(``models/layers.py:dropout``), as ``workloads/gaze_estimation.py`` trains.
 ``GazeEstimator1Complicated`` is not ported yet: no script uses it.
 """
 
@@ -37,9 +38,9 @@ def _mlp_init(gen, din, hidden, dout, device, dtype):
     }
 
 
-def _mlp_apply(params, x):
-    x = torch.relu(L.linear(x, params["fc0"]))
-    x = torch.relu(L.linear(x, params["fc1"]))
+def _mlp_apply(params, x, train: bool = False, gen: torch.Generator | None = None):
+    x = L.dropout(torch.relu(L.linear(x, params["fc0"])), 0.5, gen, train)
+    x = L.dropout(torch.relu(L.linear(x, params["fc1"])), 0.5, gen, train)
     return L.linear(x, params["fc2"])
 
 
@@ -52,12 +53,13 @@ class GazeEstimator1:
         return _mlp_init(gen, landmark_dim, hidden_dim, 3, device, dtype)
 
     @staticmethod
-    def apply(params: dict, x: torch.Tensor, extract_feature: bool = False) -> torch.Tensor:
+    def apply(params: dict, x: torch.Tensor, extract_feature: bool = False, train: bool = False,
+              gen: torch.Generator | None = None) -> torch.Tensor:
         """x: (B, 19) landmarks, or (B, H, W) segmentation maps when
         ``extract_feature``; returns (B, 3) unit gaze vectors."""
         if extract_feature:
             x = extract_eye_landmarks(x)
-        return _normalize(_mlp_apply(params, x))
+        return _normalize(_mlp_apply(params, x, train, gen))
 
 
 class GazeEstimator2:
@@ -70,12 +72,12 @@ class GazeEstimator2:
         return params
 
     @staticmethod
-    def apply(params: dict, x: torch.Tensor, extract_feature: bool = False,
-              compute_dtype=torch.float32) -> torch.Tensor:
+    def apply(params: dict, x: torch.Tensor, extract_feature: bool = False, train: bool = False,
+              gen: torch.Generator | None = None, compute_dtype=torch.float32) -> torch.Tensor:
         """x: (B, 2048) features, or channel-last RGB images (B, H, W, 3)
         when ``extract_feature`` (the ResNet50 trunk runs in
         ``compute_dtype``, the head in float32); returns (B, 3) unit gaze
         vectors."""
         if extract_feature:
             x = ResNet50.apply(params["resnet"], x, compute_dtype=compute_dtype)
-        return _normalize(_mlp_apply(params["head"], x))
+        return _normalize(_mlp_apply(params["head"], x, train, gen))

@@ -145,3 +145,14 @@ def upsample_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope)
+
+
+def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None, train: bool) -> torch.Tensor:
+    """Inverted dropout: each element kept with probability ``1 - rate``
+    (a Bernoulli mask drawn from ``gen`` on ``x``'s device) and scaled by
+    ``1 / (1 - rate)``; the identity unless ``train`` and ``gen`` is given."""
+    if not train or rate == 0.0 or gen is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.empty(x.shape, device=x.device).bernoulli_(keep, generator=gen).to(torch.bool)
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)

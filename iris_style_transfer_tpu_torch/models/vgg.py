@@ -6,9 +6,10 @@ normalization inside the forward, optional mask multiply, content/style
 taps, ``truncate`` after the deepest tap, ``final`` in float32.
 
 Inputs are NCHW in [0,1]; activations run in ``compute_dtype`` with
-channels_last memory.  Block 1's relu1_2 + pool1 is the fused relu+pool op
-(``ops/relu_pool.py``): on a CUDA device that is always the hand-written
-kernel.  Pools 2-4 are relu plus the tie-to-all ``max_pool``, and odd
+channels_last memory.  conv1_1 (C_in = 3) is the small-C_in conv
+(``ops/conv1.py``) and block 1's relu1_2 + pool1 the fused relu+pool op
+(``ops/relu_pool.py``): on a CUDA device both are always the hand-written
+kernels.  Pools 2-4 are relu plus the tie-to-all ``max_pool``, and odd
 extents take the plain pool, as in the JAX package.  ``stats_taps=True``
 computes each style tap with the fused relu+stats op
 (``ops/relu_stats.py``; on a CUDA device the hand-written kernels) and
@@ -21,6 +22,7 @@ from typing import Sequence
 
 import torch
 
+from ..ops import conv1
 from ..ops.image import imagenet_normalize
 from ..ops.losses import stats_from_sums
 from . import layers as L
@@ -157,7 +159,10 @@ class VGG19:
             cname = f"conv{block}_{conv_in_block}"
             bname = f"bn{block}_{conv_in_block}"
             rname = f"relu{block}_{conv_in_block}"
-            h = L.conv2d(h, params[cname], stride=1, padding=1)
+            if h.shape[1] <= conv1.MAX_CIN:  # conv1_1: the small-C_in kernel, as JAX's h.shape[-1] * 9 <= 128
+                h = conv1.conv1(h, params[cname])
+            else:
+                h = L.conv2d(h, params[cname], stride=1, padding=1)
             if cname in taps_wanted:
                 taps[cname] = h
             idx += 1

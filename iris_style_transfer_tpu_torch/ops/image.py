@@ -6,7 +6,9 @@ package, so the two are compared like with like; the conv models take
 NCHW and the workload permutes at that boundary (a free view for
 channels_last memory).  Crop-and-resize and paste are batched separable
 resamples: two 2-tap interpolation matrices per image, applied as one
-einsum over the batch.
+einsum over the batch.  The training augmentations (rotation, perspective)
+warp one (H, W, C) image by an inverse homography, nearest or bilinear,
+with their random parameters drawn from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -243,3 +245,100 @@ def composite_iris(
     pasted, inside = paste_resized(frame.shape[1:3], stylized, bbox)
     m = iris_mask.to(frame.dtype) * inside.to(frame.dtype)
     return frame * (1.0 - m) + pasted * m
+
+
+# ---------------------------------------------------------------------------
+# Geometric augmentation (rotation / perspective), as torchvision's
+# RandomRotation / RandomPerspective; one (H, W, C) image at a time.
+# ---------------------------------------------------------------------------
+
+
+def _bilinear_gather(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """Sample img (H, W, C) at float coords (out_h, out_w), edge-replicated:
+    coords are clamped into [0, dim-1] before the floor."""
+    h, w, _ = img.shape
+    ys = ys.clamp(0.0, h - 1.0)
+    xs = xs.clamp(0.0, w - 1.0)
+    y0, x0 = torch.floor(ys), torch.floor(xs)
+    wy, wx = (ys - y0)[..., None], (xs - x0)[..., None]
+    y0i, x0i = y0.long(), x0.long()
+    y1i, x1i = torch.clamp_max(y0i + 1, h - 1), torch.clamp_max(x0i + 1, w - 1)
+    top = img[y0i, x0i] * (1 - wx) + img[y0i, x1i] * wx
+    bot = img[y1i, x0i] * (1 - wx) + img[y1i, x1i] * wx
+    return top * (1 - wy) + bot * wy
+
+
+def _warp(img: torch.Tensor, inv_coeffs: torch.Tensor, mode: str, fill: float = 0.0) -> torch.Tensor:
+    """Warp (H, W, C) by the inverse homography ``inv_coeffs`` (8,) that maps
+    output pixel coords to input ones: x_src = (a x + b y + c) / (g x + h y
+    + 1), y_src = (d x + e y + f) / (g x + h y + 1); ``fill`` outside."""
+    h, w, _ = img.shape
+    a, b, c, d, e, f, g, hh = inv_coeffs.to(img.dtype).unbind()
+    ys = torch.arange(h, device=img.device, dtype=img.dtype)[:, None].expand(h, w)
+    xs = torch.arange(w, device=img.device, dtype=img.dtype)[None, :].expand(h, w)
+    denom = g * xs + hh * ys + 1.0
+    xsrc = (a * xs + b * ys + c) / denom
+    ysrc = (d * xs + e * ys + f) / denom
+    if mode == "nearest":
+        xi, yi = torch.round(xsrc).long(), torch.round(ysrc).long()
+        valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        out = img[yi.clamp(0, h - 1), xi.clamp(0, w - 1)]
+    elif mode == "bilinear":
+        valid = (xsrc >= -0.5) & (xsrc <= w - 0.5) & (ysrc >= -0.5) & (ysrc <= h - 0.5)
+        out = _bilinear_gather(img, ysrc, xsrc)
+    else:
+        raise ValueError(f"_warp: mode must be 'nearest' or 'bilinear', got {mode!r}")
+    return torch.where(valid[..., None], out, fill)
+
+
+def rotate(img: torch.Tensor, angle_deg: torch.Tensor | float, mode: str = "nearest") -> torch.Tensor:
+    """Rotate (H, W, C) about its centre by ``angle_deg`` counterclockwise
+    (torchvision's convention), same size, fill 0."""
+    h, w, _ = img.shape
+    theta = torch.as_tensor(angle_deg, dtype=torch.float32, device=img.device) * (torch.pi / 180.0)
+    cx, cy = (w - 1) / 2.0, (h - 1) / 2.0
+    cos, sin = torch.cos(theta), torch.sin(theta)
+    zero = torch.zeros_like(cos)
+    coeffs = torch.stack([cos, -sin, -cos * cx + sin * cy + cx,
+                          sin, cos, -sin * cx - cos * cy + cy, zero, zero])
+    return _warp(img, coeffs, mode)
+
+
+def _perspective_coeffs(startpoints: torch.Tensor, endpoints: torch.Tensor) -> torch.Tensor:
+    """The homography (8,) that maps ``endpoints`` to ``startpoints``
+    ((4, 2) arrays of (x, y)), the inverse warp used when sampling."""
+    xe, ye = endpoints[:, 0], endpoints[:, 1]
+    xs, ys = startpoints[:, 0], startpoints[:, 1]
+    zeros, ones = torch.zeros_like(xe), torch.ones_like(xe)
+    rows_x = torch.stack([xe, ye, ones, zeros, zeros, zeros, -xs * xe, -xs * ye], dim=1)
+    rows_y = torch.stack([zeros, zeros, zeros, xe, ye, ones, -ys * xe, -ys * ye], dim=1)
+    return torch.linalg.solve(torch.cat([rows_x, rows_y]), torch.cat([xs, ys]))
+
+
+def perspective_warp(img: torch.Tensor, startpoints: torch.Tensor, endpoints: torch.Tensor,
+                     mode: str = "bilinear") -> torch.Tensor:
+    """Perspective transform of (H, W, C): the four ``startpoints`` corners
+    go to ``endpoints`` (torchvision's convention), fill 0."""
+    coeffs = _perspective_coeffs(startpoints.float(), endpoints.float())
+    return _warp(img, coeffs, mode)
+
+
+def random_rotation_params(gen: torch.Generator, degrees: float, device="cpu") -> torch.Tensor:
+    """angle ~ U(-degrees, degrees), as torchvision's RandomRotation."""
+    return (torch.rand((), generator=gen, device=device) * 2.0 - 1.0) * degrees
+
+
+def random_perspective_params(gen: torch.Generator, height: int, width: int, distortion_scale: float,
+                              device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+    """Start and end points as torchvision's RandomPerspective.get_params:
+    each corner moves inward by an integer offset drawn from
+    [0, distortion * half + 1) along each axis."""
+    dx = int(distortion_scale * (width // 2)) + 1
+    dy = int(distortion_scale * (height // 2)) + 1
+    hi = torch.tensor([dx, dy] * 4, device=device)
+    u = (torch.rand(8, generator=gen, device=device) * hi).long().float()
+    startpoints = torch.tensor([[0, 0], [width - 1, 0], [width - 1, height - 1], [0, height - 1]],
+                               dtype=torch.float32, device=device)
+    sign = torch.tensor([[1, 1], [-1, 1], [-1, -1], [1, -1]], dtype=torch.float32, device=device)
+    endpoints = startpoints + sign * u.reshape(4, 2)
+    return startpoints, endpoints

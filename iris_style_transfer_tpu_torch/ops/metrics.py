@@ -88,6 +88,15 @@ def angular_distance(v1: torch.Tensor, v2: torch.Tensor) -> tuple[torch.Tensor, 
     return rad, torch.rad2deg(rad)
 
 
+def cosine_embedding_loss(x1: torch.Tensor, x2: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """``CosineEmbeddingLoss`` with target 1: ``mean(1 - cos(x1, x2))`` over
+    rows, the product of the norms floored at ``eps``."""
+    n1 = torch.linalg.vector_norm(x1, dim=1)
+    n2 = torch.linalg.vector_norm(x2, dim=1)
+    cos = (x1 * x2).sum(dim=1) / torch.clamp_min(n1 * n2, eps)
+    return (1.0 - cos).mean()
+
+
 def iou_per_class(
     preds: torch.Tensor, targets: torch.Tensor, num_class: int = 4, eps: float = 1e-6
 ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -119,6 +119,15 @@ def _seg_iou_job(metric_prefix, parts, valid):
     return log, {"ious": ious_v, "mious": miou[valid]}
 
 
+def _load_head(path: str, head: str, default: dict, device) -> dict:
+    """A classifier's parameters from ``path`` (an exact checkpoint file, or
+    a directory's latest step), or ``default`` when no path is given.  A
+    checkpoint of ``workloads/iris_classification.py`` holds both heads,
+    under ``c1`` and ``c2``; ``head`` picks one."""
+    params = restore_params(path, default, device)
+    return params[head] if head in params else params
+
+
 def iris_style_transfer_openeds2019(
     cfg: WorkloadConfig,
     dataset,
@@ -279,9 +288,9 @@ def main(argv: list[str] | None = None):
 
     vgg_params = load_pretrained("vgg19", args.vgg_weights, lambda: VGG19.init(gen, device), device)
     ritnet_params = RITnet.pretrained(device)
-    c1_params = restore_params(args.classifier1_path, Classifier1.init(gen, num_class, device), device)
-    c2_params = restore_params(args.classifier2_path, Classifier2.init(gen, num_class=num_class, device=device),
-                               device)
+    c1_params = _load_head(args.classifier1_path, "c1", Classifier1.init(gen, num_class, device), device)
+    c2_params = _load_head(args.classifier2_path, "c2", Classifier2.init(gen, num_class=num_class, device=device),
+                           device)
 
     presentation = {"name", "project", "num_workers", "resume", "save_period"}
     sweep_config = {k: v for k, v in cfg.to_dict().items() if k not in presentation}

@@ -13,6 +13,7 @@ import torch
 
 from iris_style_transfer_tpu_torch.models import VGG19, EfficientNet
 from iris_style_transfer_tpu_torch.ops import blockwise_gram as bg
+from iris_style_transfer_tpu_torch.ops import conv1 as c1
 from iris_style_transfer_tpu_torch.ops import depthwise as dw
 from iris_style_transfer_tpu_torch.ops import relu_pool as rp
 from iris_style_transfer_tpu_torch.ops import relu_stats as rs
@@ -191,3 +192,43 @@ def test_nst_paths_launch_the_kernels_as_derived(cuda):
     before = bg.LAUNCHES["gram_matrix"]
     make_nst_fn(epochs=3, bn_loss=False, compute_dtype=torch.bfloat16)(params, c, s)
     assert bg.LAUNCHES["gram_matrix"] == before + 4 * 4
+
+
+@pytest.mark.parametrize("shape,cout,dtype", [((2, 3, 37, 53), 64, torch.float32), ((4, 3, 64, 96), 64, torch.bfloat16),
+                                              ((2, 1, 9, 11), 20, torch.float32), ((2, 4, 33, 17), 128, torch.bfloat16)])
+def test_conv1_kernel_within_tolerance(cuda, shape, cout, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    b, cin, h, w = shape
+    x = torch.rand((b, h, w, cin), generator=gen, device="cuda").to(dtype).permute(0, 3, 1, 2)
+    wt = torch.randn((cout, cin, 3, 3), generator=gen, device="cuda") * 0.3
+    bias = torch.randn(cout, generator=gen, device="cuda")
+    before = c1.LAUNCHES["conv1"]
+    y = c1.conv1_fwd(x, wt, bias)
+    torch.cuda.synchronize()
+    assert c1.LAUNCHES["conv1"] == before + 1
+    assert y.dtype == dtype and y.is_contiguous(memory_format=torch.channels_last)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ok, err = c1.within_tolerance(y, c1.conv1_fwd_plain(x, wt, bias))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert ok, err
+
+
+def test_conv1_kernel_rejects_other_layouts(cuda):
+    x = torch.rand(2, 3, 8, 8, device="cuda")  # NCHW-contiguous
+    wt, bias = torch.randn(8, 3, 3, 3, device="cuda"), torch.zeros(8, device="cuda")
+    with pytest.raises(ValueError, match="channels_last"):
+        c1.conv1_fwd(x, wt, bias)
+    with pytest.raises(ValueError, match="dtype"):
+        c1.conv1_fwd(x.half().contiguous(memory_format=torch.channels_last), wt, bias)
+
+
+def test_vgg19_conv1_1_goes_through_the_kernel(cuda):
+    params = VGG19.init(torch.Generator().manual_seed(0), device="cuda")
+    x = torch.rand(2, 3, 32, 32, device="cuda", requires_grad=True)
+    before = c1.LAUNCHES["conv1"]
+    _, c, s = VGG19.apply(params, x, compute_dtype=torch.bfloat16, truncate=True)
+    torch.autograd.grad(sum(f.float().sum() for f in [*c, *s]), x)
+    assert c1.LAUNCHES["conv1"] == before + 1

@@ -174,6 +174,7 @@ def test_port_imports_no_jax():
         "import iris_style_transfer_tpu_torch\n"
         "from iris_style_transfer_tpu_torch import data, models, ops, pipelines, runtime, transfer, utils\n"
         "from iris_style_transfer_tpu_torch.workloads import ist_openeds2019, ist_openeds2020\n"
+        "from iris_style_transfer_tpu_torch.workloads import gaze_estimation, iris_classification\n"
         "from iris_style_transfer_tpu_torch.demos import iris_nst_demo, nst_demo\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'iris_style_transfer_tpu.'))]\n"
         "assert not bad and 'iris_style_transfer_tpu' not in sys.modules, bad\n"
