@@ -78,6 +78,20 @@ BLOCK_ARGS = block_args()
 STEM_CHANNELS = _round_filters(32)  # 64
 
 
+def depthwise_shapes(height: int = 416, width: int = 640) -> dict[tuple[int, int, int, int], int]:
+    """(k, C, H, W) of the stride-1 depthwise convs (the ones that take
+    ``dw_conv_bn_silu``) of one forward on a padded ``height`` x ``width``
+    frame, and how many blocks take each."""
+    h, w = -(-height // 2), -(-width // 2)  # after the stride-2 stem
+    shapes: dict[tuple[int, int, int, int], int] = {}
+    for e, k, s, cin, _ in BLOCK_ARGS:
+        if s == 1:
+            shapes[(k, cin * e, h, w)] = shapes.get((k, cin * e, h, w), 0) + 1
+        else:
+            h, w = -(-h // 2), -(-w // 2)
+    return shapes
+
+
 def _skip_indices() -> list[int]:
     """Encoder taps (smp's stage splits for efficientnet-b7): just before
     every stride-2 block except the first (the stem output is the /2 tap),

@@ -7,8 +7,10 @@ with the hand-written Hopper kernel in ``ops/csrc/conv1.cu``:
     y[b, o, i, j] = bias[o] + sum_{kh, kw, ci} xpad[b, ci, i+kh, j+kw] * w[o, ci, kh, kw]
 
 for C_in from 1 to 4 and C_out up to 128, float32 or bfloat16 in and out,
-f32 accumulation in a fixed order, the bias added in f32, one rounding to
-the output dtype.  The JAX package runs conv1_1 through
+f32 accumulation, the bias added in f32, one rounding to the output dtype.
+bfloat16 runs as an implicit GEMM on the tensor cores (``mma.sync``, the
+products exact, the sums in the tensor cores' f32); float32 stays on the
+CUDA cores in a fixed order (TF32 would break its bound).  The JAX package runs conv1_1 through
 ``models/layers.py:conv2d_mxu_dx`` (an XLA forward with a custom input
 gradient); its Pallas forward has no caller there.  The TPU kernel's
 ``supported()`` shape gate is a TPU tiling rule and is not carried over:
@@ -30,7 +32,9 @@ The plain version rounds as the kernel does: an f32 conv of the inputs
 rounded to the input dtype, then one rounding.  (On an H100, cuDNN's bf16
 conv with a bf16 bias rounds before and after the bias add and matched the
 kernel on only 63% of elements, each within one ulp; the bf16 products are
-exact in f32 and in TF32.)  Kernel vs plain on the card
+exact in f32 and in TF32.  The tensor-core kernel equals the plain version
+on more than 99.99% of bf16 elements at the main paths' shapes.)  Kernel vs
+plain on the card
 (:func:`within_tolerance`): float32 ``max|y_k - y_p| <= 1e-5 * max|y_p|``
 (with TF32 off for the plain conv);
 bfloat16 every element within one bf16 ulp of the larger magnitude, or

@@ -22,8 +22,16 @@ version.  Every caller runs B7 frozen, so there is no backward; an input
 that requires grad under grad mode raises rather than silently getting
 none.
 
+The kernel's launch is planned here (:func:`plan`): a thread owns ``vec``
+consecutive channels (4 when C is a multiple of 8 and x is 16-byte
+aligned, else 1) and a run of ``RUN`` output pixels along W; a block owns
+``cvb`` channel vectors of a ``tile_h`` x ``runs * RUN`` pixel tile.  The
+CPU tests hold the plan at every B7 shape: every output element is
+covered once and the block fits the card.
+
 Kernel vs plain on the card cannot be bit-exact: the kernel contracts each
-tap into an FMA and its SiLU uses ``expf``.  The stated tolerance
+tap into an FMA, and the affine too, and its SiLU takes the card's fast
+exp and reciprocal (``__expf``, ``__fdividef``, ~1e-6 relative).  The stated tolerance
 (:func:`within_tolerance`): float32 ``max|y_k - y_p| <= 1e-5 * max|y_p|``;
 bfloat16 every element within one bf16 ulp of the larger magnitude or
 within ``1e-5 * max|y_p|`` (where ``a * acc + b`` cancels to near zero, the
@@ -34,6 +42,8 @@ f32 rounding of the two forms is many ulps of the tiny result), and
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -47,17 +57,84 @@ LAUNCHES = {"dw_conv_bn_silu": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KS = (3, 5)
-_THREADS = 256  # the kernel's block size; a row of W*C elements is split into chunks of it
+MAX_THREADS = 256  # the kernel's __launch_bounds__
+RUN = 8  # output pixels of a thread's run along W (the kernel's kRun)
+MAX_SMEM = 75 * 1024  # a plan's shared memory per block: three blocks per SM, as the registers allow at k = 3
 _lib = None
+
+
+class Plan(NamedTuple):
+    """One launch of the kernel.  A thread owns ``vec`` channels of ``RUN``
+    neighbouring output pixels of a row, for the rows ``ty, ty + rows_t,
+    ...`` of its block's tile; a block owns ``cvb`` channel vectors
+    (``cvb * vec`` channels, one of ``slices``) of a ``tile_h`` x
+    ``tile_w`` pixel tile and stages its halo in shared memory."""
+
+    vec: int
+    cvb: int
+    runs: int  # threads along W: tile_w = runs * RUN
+    rows_t: int  # threads along H
+    tile_h: int
+    tile_w: int
+    tiles_h: int
+    tiles_w: int
+    slices: int
+    blocks: int  # bsz * tiles_h * tiles_w * slices
+    threads: int  # cvb * runs * rows_t
+    smem: int  # bytes of dynamic shared memory
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=256)
+def plan(shape: tuple[int, int, int, int], k: int, itemsize: int, aligned: bool) -> Plan:
+    """The launch for an NCHW ``shape``: vectors of 4 channels when C is a
+    multiple of 8 and ``aligned`` (x 16-byte aligned), else scalar
+    channels; the largest channel slice of at most 16 vectors (32 scalar
+    channels) that divides C, whole 16-byte copies for vectors; the rest
+    of the block's 256 threads spread over a tile of ``runs`` runs along W
+    (at most a quarter of them) and ``rows_t`` rows, each thread taking 4
+    rows (fewer where the halo tile would pass ``MAX_SMEM``); tiles evened
+    out over the image."""
+    bsz, c, h, w = shape
+    rows_per_thread, max_cvb = 4, 16
+    vec = 4 if c % 8 == 0 and aligned else 1
+    nvec = c // vec
+    cvb = max(d for d in range(1, min(nvec, max_cvb if vec > 1 else 32) + 1)
+              if nvec % d == 0 and (vec == 1 or d * vec % 8 == 0))
+    spatial = MAX_THREADS // cvb
+    runs_total = _cdiv(w, RUN)
+    runs = min(runs_total, max(1, spatial // 4))
+    while True:
+        tiles_w = _cdiv(runs_total, runs)
+        runs = _cdiv(runs_total, tiles_w)
+        rows_t = max(1, min(h, spatial // runs))
+        tile_h = min(h, rows_t * rows_per_thread)
+        tiles_h = _cdiv(h, tile_h)
+        tile_h = _cdiv(h, tiles_h)
+        rows_t = min(rows_t, tile_h)
+        pe = cvb * vec
+        smem = ((k * k + 2) * pe + 3) // 4 * 4 * 4 + (tile_h + k - 1) * (runs * RUN + k - 1) * pe * itemsize
+        if smem <= MAX_SMEM or (runs == 1 and rows_per_thread == 1):
+            break
+        if rows_per_thread > 1:
+            rows_per_thread //= 2
+        else:
+            runs = _cdiv(runs, 2)
+    slices = nvec // cvb
+    return Plan(vec, cvb, runs, rows_t, tile_h, runs * RUN, tiles_h, tiles_w, slices,
+                bsz * tiles_h * tiles_w * slices, cvb * runs * rows_t, smem)
 
 
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = load_library(SOURCE)
-        i64, vp = ctypes.c_int64, ctypes.c_void_p
-        lib.dw_conv_bn_silu.argtypes = [vp, vp, vp, vp, vp, i64, i64, i64, i64, ctypes.c_int,
-                                        ctypes.c_int, vp]
+        i64, vp, i32 = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
+        lib.dw_conv_bn_silu.argtypes = [vp, vp, vp, vp, vp, i64, i64, i64, i64, i32, i32, i32, i32, i32,
+                                        i32, i32, vp]
         lib.dw_conv_bn_silu.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -84,6 +161,7 @@ def _check_input(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Ten
 
 def _kernel_fwd(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                 k: int) -> torch.Tensor:
+    """The kernel on a CUDA tensor, launched as :func:`plan` says."""
     bsz, c, h, wd = _check_input(x, w, a, b, k)
     if not x.is_cuda:
         raise ValueError(f"dw_conv_bn_silu: expected a CUDA tensor, got {x.device}")
@@ -94,8 +172,11 @@ def _kernel_fwd(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tens
     for name, t in (("w", w), ("a", a), ("b", b)):
         if t.device != x.device:
             raise ValueError(f"dw_conv_bn_silu: {name} is on {t.device}, x on {x.device}")
-    if -(-wd * c // _THREADS) > 65535 or bsz * h >= 2**31:
-        raise ValueError(f"dw_conv_bn_silu: shape {tuple(x.shape)} exceeds the kernel's grid")
+    if max(h, wd, c) >= 2**31:
+        raise ValueError(f"dw_conv_bn_silu: shape {tuple(x.shape)} has an extent of 2^31 or more")
+    if x.numel() == 0:
+        return torch.empty_like(x, memory_format=torch.channels_last)  # nothing to launch
+    pl = plan(tuple(x.shape), k, x.element_size(), x.data_ptr() % 16 == 0)
     wt = w.to(x.dtype)[:, 0].permute(1, 2, 0).contiguous()  # (k, k, C)
     a, b = a.contiguous(), b.contiguous()
     y = torch.empty_like(x, memory_format=torch.channels_last)
@@ -103,7 +184,8 @@ def _kernel_fwd(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tens
     with torch.cuda.device(x.device):
         err = lib.dw_conv_bn_silu(
             x.data_ptr(), wt.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
-            bsz, h, wd, c, k, _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
+            bsz, h, wd, c, k, _DTYPE_CODE[x.dtype], pl.vec, pl.cvb, pl.runs, pl.rows_t, pl.tile_h,
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err:
         raise RuntimeError(f"dw_conv_bn_silu launch failed with CUDA error {err}")

@@ -71,9 +71,10 @@ def test_vgg19_pool1_goes_through_the_kernel(cuda):
     assert rp.LAUNCHES["relu_pool_bwd"] == before["relu_pool_bwd"] + 1
 
 
-def _dw_inputs(shape_nhwc, k, dtype, gen):
+def _dw_inputs(shape_nhwc, k, dtype, gen, offset=0):
     b, h, w, c = shape_nhwc
-    x = torch.randn(shape_nhwc, generator=gen, device="cuda").to(dtype).permute(0, 3, 1, 2)
+    x = torch.randn(b * h * w * c + offset, generator=gen, device="cuda").to(dtype)[offset:]
+    x = x.view(shape_nhwc).permute(0, 3, 1, 2)
     wt = (torch.randn((c, 1, k, k), generator=gen, device="cuda") * 0.3).to(dtype)
     a = torch.rand(c, generator=gen, device="cuda") * 1.5 + 0.5
     bias = torch.randn(c, generator=gen, device="cuda")
@@ -81,9 +82,17 @@ def _dw_inputs(shape_nhwc, k, dtype, gen):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,k", [((2, 16, 20, 256), 3), ((3, 13, 7, 40), 5), ((4, 26, 40, 960), 5)])
-def test_depthwise_kernel_within_tolerance(cuda, dtype, shape, k):
-    x, wt, a, bias = _dw_inputs(shape, k, dtype, torch.Generator(device="cuda").manual_seed(1))
+@pytest.mark.parametrize("shape,k,offset", [
+    ((2, 16, 20, 256), 3, 0), ((3, 13, 7, 40), 5, 0), ((4, 26, 40, 960), 5, 0),
+    ((3, 9, 11, 36), 3, 0), ((3, 9, 11, 36), 5, 0),  # C % 8 != 0: scalar channels
+    ((2, 6, 3, 64), 3, 0), ((2, 6, 3, 64), 5, 0),  # W shorter than a thread's run
+    ((2, 1, 17, 40), 3, 0), ((2, 1, 17, 40), 5, 0),  # H = 1
+    ((2, 9, 12, 64), 3, 1),  # x off 16-byte alignment: scalar channels
+])
+def test_depthwise_kernel_within_tolerance(cuda, dtype, shape, k, offset):
+    x, wt, a, bias = _dw_inputs(shape, k, dtype, torch.Generator(device="cuda").manual_seed(1), offset)
+    assert dw.plan(tuple(x.shape), k, x.element_size(), x.data_ptr() % 16 == 0).vec == (
+        4 if shape[-1] % 8 == 0 and not offset else 1)
     before = dw.LAUNCHES["dw_conv_bn_silu"]
     y = dw.dw_conv_bn_silu(x, wt, a, bias, k)
     torch.cuda.synchronize()
@@ -194,8 +203,13 @@ def test_nst_paths_launch_the_kernels_as_derived(cuda):
     assert bg.LAUNCHES["gram_matrix"] == before + 4 * 4
 
 
-@pytest.mark.parametrize("shape,cout,dtype", [((2, 3, 37, 53), 64, torch.float32), ((4, 3, 64, 96), 64, torch.bfloat16),
-                                              ((2, 1, 9, 11), 20, torch.float32), ((2, 4, 33, 17), 128, torch.bfloat16)])
+@pytest.mark.parametrize("shape,cout,dtype", [
+    ((2, 3, 37, 53), 64, torch.float32), ((4, 3, 64, 96), 64, torch.bfloat16),
+    ((2, 1, 9, 11), 20, torch.float32), ((2, 4, 33, 17), 128, torch.bfloat16),
+    ((3, 1, 13, 29), 64, torch.bfloat16), ((3, 4, 13, 29), 64, torch.bfloat16),  # C_in 1 and 4
+    ((2, 3, 17, 45), 60, torch.bfloat16), ((2, 3, 17, 45), 60, torch.float32),  # C_out 60; H, W off the tile
+    ((2, 2, 9, 70), 128, torch.bfloat16),  # two chunks of 64 output channels
+])
 def test_conv1_kernel_within_tolerance(cuda, shape, cout, dtype):
     gen = torch.Generator(device="cuda").manual_seed(6)
     b, cin, h, w = shape

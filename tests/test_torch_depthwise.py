@@ -42,7 +42,8 @@ def _inputs(shape, k, seed):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape,k", [((2, 16, 20, 256), 3), ((2, 16, 20, 64), 5), ((1, 13, 7, 40), 5)])
+@pytest.mark.parametrize("shape,k", [((2, 16, 20, 256), 3), ((2, 16, 20, 64), 5), ((1, 13, 7, 40), 5),
+                                     ((1, 9, 11, 36), 3), ((1, 9, 11, 36), 5)])  # C % 8 != 0
 def test_dw_conv_bn_silu_matches_pallas_interpret(shape, k, dtype):
     x, w, a, b = _inputs(shape, k, seed=18 + k)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
@@ -91,6 +92,57 @@ def test_within_tolerance_bounds():
     many = yb.clone()
     many[:100] = (yb[:100].float() * 1.1).to(torch.bfloat16)
     assert not tdw.within_tolerance(many, yb)[0]
+
+
+def _b7_shapes():
+    """(k, C, H, W) of B7's stride-1 depthwise convs on a 416x640 frame."""
+    return sorted(teff.depthwise_shapes())
+
+
+def test_b7_depthwise_shapes():
+    """The shapes the chip checks time the kernel at: B7's 51 stride-1
+    depthwise blocks over 10 distinct shapes, C a multiple of 8."""
+    shapes = teff.depthwise_shapes()
+    assert sum(shapes.values()) == 51 and len(shapes) == 10
+    assert shapes[(3, 288, 104, 160)] == 6 and all(c % 8 == 0 for _, c, _, _ in shapes)
+    n_stride1 = sum(1 for _, _, s, _, _ in teff.BLOCK_ARGS if s == 1)
+    assert n_stride1 == 51
+
+
+_EDGE_SHAPES = [((3, 36, 9, 11), 3, True), ((3, 36, 9, 11), 5, True), ((2, 64, 6, 3), 3, True), ((2, 64, 6, 3), 5, True),
+                ((2, 40, 1, 17), 3, True), ((2, 40, 1, 17), 5, True), ((2, 64, 9, 12), 3, False), ((1, 37, 9, 11), 3, True),
+                ((1, 8 * 37, 5, 300), 5, True), ((5, 1, 1, 1), 3, True)]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("shape,k,aligned", [((32, c, h, w), k, True) for k, c, h, w in _b7_shapes()] + _EDGE_SHAPES)
+def test_dw_plan_covers_every_output_once_and_fits(shape, k, aligned, itemsize):
+    """The kernel's launch plan: channels (slice, thread's vector, lane)
+    and pixels (tile, thread, item) each hit once, a block within the
+    kernel's 256 threads and the plan's shared-memory cap, channel vectors
+    (whole 16-byte copies) only where C and the alignment allow them."""
+    bsz, c, h, w = shape
+    pl = tdw.plan(shape, k, itemsize, aligned)
+    assert pl.vec == (4 if c % 8 == 0 and aligned else 1)
+    assert pl.threads == pl.cvb * pl.runs * pl.rows_t <= tdw.MAX_THREADS
+    pe = pl.cvb * pl.vec
+    assert c % pe == 0 and pl.slices == c // pe
+    assert pl.tile_w == pl.runs * tdw.RUN and pl.blocks == bsz * pl.tiles_h * pl.tiles_w * pl.slices
+    smem = ((k * k + 2) * pe + 3) // 4 * 4 * 4 + (pl.tile_h + k - 1) * (pl.tile_w + k - 1) * pe * itemsize
+    assert pl.smem == smem <= tdw.MAX_SMEM
+    # channels: slice, thread vector cv (vec channels from cv * vec), lane v
+    chans = [s * pe + cv * pl.vec + v for s in range(pl.slices) for cv in range(pl.cvb) for v in range(pl.vec)]
+    assert sorted(chans) == list(range(c))
+    # rows: tile, thread row ty, the thread's rows ty, ty + rows_t, ... below tile_h
+    rows = [i * pl.tile_h + r for i in range(pl.tiles_h) for ty in range(pl.rows_t)
+            for r in range(ty, pl.tile_h, pl.rows_t) if i * pl.tile_h + r < h]
+    assert sorted(rows) == list(range(h))
+    # columns: tile, thread run (RUN pixels from run * RUN), pixel p of the run
+    cols = [i * pl.tile_w + run * tdw.RUN + p for i in range(pl.tiles_w) for run in range(pl.runs)
+            for p in range(tdw.RUN) if i * pl.tile_w + run * tdw.RUN + p < w]
+    assert sorted(cols) == list(range(w))
+    if bsz == 32 and c > 8:  # a B7 shape: several waves of blocks on the 132 SMs
+        assert pl.blocks >= 8 * 132
 
 
 def _fill(shapes, rng):
