@@ -32,13 +32,15 @@ exit:
                sums against the bound; conv1 at both shapes); checks with
                torch.profiler and the launch counts that a VGG19 forward
                (+backward, plain and with stats taps; bf16 conv1_1 on the
-               tensor-core kernel), a Gram-loss closure and a B7 U-Net
-               apply launch them.
+               tensor-core kernel), a Gram-loss closure (the Gram's
+               tensor-core kernel; an f32 Gram its CUDA-core one) and a B7
+               U-Net apply launch them.
   4. nst     — the production NST loop (bf16 compute, bf16 L-BFGS history,
                m = 10) at (64, 3, 224, 224) on seeded VGG19 weights, once
                with the classic BN taps and once with the stats taps (their
                s_loss histories compared); then the Gram-loss loop at
-               (4, 3, 512, 512).  After one warm-up closure each loop runs
+               (4, 3, 512, 512), and one Gram-loss closure's wall time,
+               device time and the Gram kernels' device time.  After one warm-up closure each loop runs
                under ``torch.cuda.set_sync_debug_mode("error")``, so a host
                sync inside it fails the run.
   5. main    — ``workloads.ist_openeds2019.main`` in-process on the
@@ -214,23 +216,79 @@ def _turns(fns: dict, iters: int = 20) -> dict:
     return {k: min(v) for k, v in t.items()}
 
 
-def _device_ms(fn, n: int = 5) -> float:
-    """Device time per call of ``fn``: every kernel it launches, summed
-    over ``n`` calls traced by torch.profiler."""
+PROFILER_TRIES = 4
+
+
+def _trace(fn, ok, what: str, cpu: bool = True):
+    """Key averages of ``fn`` (then a device sync) under torch.profiler,
+    and the number of traces that took.  On the H100 the profiler drops
+    kernel events: after a process's first few traces, the first kernel
+    of each trace, and now and then every event of several short traces
+    in a row.  So a trace that ``ok`` rejects is taken again after a
+    pause, up to PROFILER_TRIES times in all; raises naming ``what`` if
+    none passes.  A caller that counts launches around this call counts
+    those of every try."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    for tries in range(1, PROFILER_TRIES + 1):
+        if tries > 1:
+            time.sleep(1.0)
+        with profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = prof.key_averages()
+        if ok(ev):
+            if tries > 1:
+                _log("profiler", f"{what}: traced on try {tries}")
+            return ev, tries
+    raise AssertionError(f"torch.profiler did not trace {what} in {PROFILER_TRIES} tries")
+
+
+def _device_events(ev) -> list:
+    return [e for e in ev if "cuda" in str(getattr(e, "device_type", "")).lower()
+            and getattr(e, "self_device_time_total", 0) > 0]
+
+
+def _queued_ms(fn, n: int) -> float:
+    """Time per call of ``fn`` in CUDA events around ``n`` calls queued
+    behind a sleep kernel: the host enqueues them all while the card
+    sleeps, so they run back to back and the host's launch time is
+    hidden, as in device time."""
+    import torch
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-             if "cuda" in str(getattr(e, "device_type", "")).lower())
-    if us <= 0:
-        raise AssertionError("torch.profiler traced no device time")
-    return us / n / 1e3
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # about 10 ms at the H100's clock
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _device_ms(fn, n: int = 5) -> float:
+    """Device time per call of ``fn`` from ``n`` calls traced by
+    torch.profiler: each kernel's mean time times the launches of it one
+    call makes (its traced count over ``n``, at least 1), so that an event
+    the profiler drops does not shrink the sum.  Where no trace holds a
+    device event, the calls are timed by ``_queued_ms`` instead, and the
+    log says so."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        ev, _ = _trace(lambda: [fn() for _ in range(n)], lambda ev: bool(_device_events(ev)),
+                       "a timed call's kernels", cpu=False)
+    except AssertionError as err:
+        ms = _queued_ms(fn, n)
+        _log("profiler", f"{err}; {ms:.4f} ms a call in CUDA events behind a queued sleep instead")
+        return ms
+    return sum(e.self_device_time_total / e.count * max(1, round(e.count / n)) for e in _device_events(ev)) / 1e3
 
 
 def _check_pair(shape_nhwc, dtype, gen):
@@ -287,20 +345,13 @@ def phase_kernels(card: str):
 
     fwd_bwd()
     torch.cuda.synchronize()
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fwd_bwd()
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages()]
-    for k in ("relu_pool_fwd_kernel", "relu_pool_bwd_kernel"):
-        hits = [n for n in names if k in n]
-        if not hits:
-            raise AssertionError(f"{k} absent from the profiler trace of a VGG19 forward+backward")
-    device_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-                    if any(k in e.key for k in ("relu_pool_fwd_kernel", "relu_pool_bwd_kernel")))
-    _log("kernels", f"profiler: relu_pool_fwd_kernel and relu_pool_bwd_kernel traced in one VGG19 "
-         f"fwd+bwd at (64,3,224,224) bf16 ({device_us / 1000:.3f} ms device time)")
+    names = ("relu_pool_fwd_kernel", "relu_pool_bwd_kernel")
+    ev, _ = _trace(lambda: [fwd_bwd() for _ in range(3)],  # three passes: the profiler has missed single launches
+                   lambda ev: all(any(k in e.key for e in ev) for k in names),
+                   "relu_pool_fwd_kernel and relu_pool_bwd_kernel in three VGG19 forward+backward passes")
+    device_us = sum(getattr(e, "self_device_time_total", 0) for e in ev if any(k in e.key for k in names))
+    _log("kernels", f"profiler: relu_pool_fwd_kernel and relu_pool_bwd_kernel traced in three VGG19 "
+         f"fwd+bwd at (64,3,224,224) bf16 ({device_us / 3000:.3f} ms device time a pass)")
     return {"err_fwd": err_f, "err_bwd": err_b, "bound_fwd": bound_f, "bound_bwd": bound_b, **ms}
 
 
@@ -393,6 +444,32 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
+def _dw_grad_check(shape_nhwc, k, dtype, gen) -> float:
+    """The Function's gradient (kernel forward, plain f32 backward) in x, w,
+    a and b against autograd through the plain version under one cotangent,
+    on the same values in float32 and cast once to each input's dtype (in
+    bf16, autograd would sum the k^2 taps' dx contributions in bf16);
+    returns the worst error relative to its gradient's largest magnitude.
+    Bound: 1e-5 in float32; 1e-2 in bfloat16, where dx and dw are bf16 (an
+    ulp is 2^-8 of the value)."""
+    import torch
+    from iris_style_transfer_tpu_torch.ops import depthwise as dw
+
+    x, wt, a, bias = _dw_inputs(shape_nhwc, k, dtype, gen)
+    ct = torch.randn(x.shape, generator=gen, device="cuda").to(dtype).contiguous(memory_format=torch.channels_last)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, wt, a, bias)]
+    got = torch.autograd.grad(dw.dw_conv_bn_silu(*leaves, k), leaves, ct)
+    ref = [t.detach().float().requires_grad_(True) for t in (x, wt, a, bias)]
+    want = torch.autograd.grad(dw.dw_conv_bn_silu_plain(*ref, k), ref, ct.float())
+    worst = max((g.float() - p.to(g.dtype).float()).abs().max().item() / p.abs().max().item()
+                for g, p in zip(got, want))
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    if not worst <= tol:
+        raise AssertionError(f"dw_conv_bn_silu gradient at {shape_nhwc} k{k} {dtype}: {worst:.3g} of the "
+                             f"largest gradient against autograd through the plain version (bound {tol:g})")
+    return worst
+
+
 def phase_kernels_depthwise(card: str, chunk: int):
     """dw_conv_bn_silu against its plain version at every B7 shape of a
     chunk, timing in turns, and a profiler proof on one B7 U-Net apply."""
@@ -463,6 +540,14 @@ def phase_kernels_depthwise(card: str, chunk: int):
          f"plain version) at (2,48,64,1): logits max rel err {agree['logit_err']:.3g}, "
          f"labels {100 * agree['labels_equal']:.2f}% equal, classes {agree['classes']}")
 
+    # B7 is differentiable: the Function's gradient at one B7 shape per k
+    for (k, c, h, w) in ((3, 288, 104, 160), (5, 480, 52, 80)):
+        for dtype in (torch.float32, torch.bfloat16):
+            e = _dw_grad_check((4, h, w, c), k, dtype, gen)
+            _log("kernels", f"dw gradient (4,{h},{w},{c}) k{k} {str(dtype)[6:]}: the Function (kernel forward, "
+                 f"plain f32 backward) vs autograd through the plain version, worst of dx, dw, da, db "
+                 f"{e:.3g} of the largest gradient (bound {1e-5 if dtype == torch.float32 else 1e-2:g})")
+
     # one B7 U-Net apply (flip TTA) on a chunk of full frames launches the kernel 102 times
     params = EfficientNet.init(torch.Generator().manual_seed(SEED), device="cuda")
     frames = torch.rand((chunk, 400, 640, 1), generator=gen, device="cuda")
@@ -473,23 +558,19 @@ def phase_kernels_depthwise(card: str, chunk: int):
 
     apply()
     torch.cuda.synchronize()
-    from torch.profiler import ProfilerActivity, profile
-
     torch.cuda.reset_peak_memory_stats()
     before = dw.LAUNCHES["dw_conv_bn_silu"]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        apply()
-        torch.cuda.synchronize()
-    launched = dw.LAUNCHES["dw_conv_bn_silu"] - before
+    ev, tries = _trace(apply, lambda ev: any("dw_conv_bn_silu_kernel" in e.key for e in ev),
+                       "dw_conv_bn_silu_kernel in one B7 U-Net apply")
+    launched = (dw.LAUNCHES["dw_conv_bn_silu"] - before) / tries
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    events = [e for e in prof.key_averages() if "dw_conv_bn_silu_kernel" in e.key]
+    events = [e for e in ev if "dw_conv_bn_silu_kernel" in e.key]
     traced = sum(e.count for e in events)
-    if not events or launched != 102:
+    if launched != 102:
         raise AssertionError(f"one B7 apply: dw_conv_bn_silu_kernel traced {traced} times, counted "
                              f"{launched} launches; 102 expected")
     dw_us = sum(getattr(e, "self_device_time_total", 0) for e in events)
-    all_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-                 if getattr(e, "device_type", None) is not None and "cuda" in str(e.device_type).lower())
+    all_us = sum(getattr(e, "self_device_time_total", 0) for e in _device_events(ev))
     apply_ms = min(_time_ms(apply, iters=3) for _ in range(2))
     _log("kernels", f"profiler: dw_conv_bn_silu_kernel traced {traced} times in one B7 U-Net apply at "
          f"({chunk},400,640,1) bf16 TTA ({dw_us / 1000:.3f} ms of {all_us / 1000:.3f} ms device time); "
@@ -561,7 +642,6 @@ def phase_kernels_relu_stats(card: str):
     del x, ct, a, b2
 
     # the path launches them: one VGG19 forward+backward with stats taps
-    from torch.profiler import ProfilerActivity, profile
     from iris_style_transfer_tpu_torch.models import VGG19
 
     params = VGG19.init(torch.Generator().manual_seed(SEED), device="cuda")
@@ -575,40 +655,45 @@ def phase_kernels_relu_stats(card: str):
     fwd_bwd()
     torch.cuda.synchronize()
     before = dict(rs.LAUNCHES)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fwd_bwd()
-        torch.cuda.synchronize()
-    counted = {k: rs.LAUNCHES[k] - before[k] for k in before}
-    traced = {k: sum(e.count for e in prof.key_averages() if f"{k}_kernel" in e.key) for k in before}
-    if counted != {"relu_stats_fwd": 4, "relu_stats_bwd": 4} or min(traced.values()) == 0:
+    ev, tries = _trace(fwd_bwd, lambda ev: all(any(f"{k}_kernel" in e.key for e in ev) for k in before),
+                       "relu_stats_fwd_kernel and relu_stats_bwd_kernel in one VGG19 fwd+bwd with stats taps")
+    counted = {k: (rs.LAUNCHES[k] - before[k]) / tries for k in before}
+    traced = {k: sum(e.count for e in ev if f"{k}_kernel" in e.key) for k in before}
+    if counted != {"relu_stats_fwd": 4, "relu_stats_bwd": 4}:
         raise AssertionError(f"one VGG19 fwd+bwd with stats taps counted {counted} launches and traced {traced} "
                              "kernels; 4 launches of each, each traced, expected")
     # the profiler has traced fewer relu_stats_fwd kernels than were launched;
     # every relu_stats event it keeps is listed, for the record
-    keys = {e.key[:60]: e.count for e in prof.key_averages() if "relu_stats" in e.key}
+    keys = {e.key[:60]: e.count for e in ev if "relu_stats" in e.key}
     _log("kernels", f"one VGG19 fwd+bwd with stats taps at (64,3,224,224) bf16: {counted} launches counted, "
          f"profiler traced {traced}; its relu_stats events {keys}")
     return {"err_fwd": worst["fwd"], "err_bwd": worst["bwd"], **ms}
 
 
 def phase_kernels_gram(card: str):
-    """The Gram kernel against the plain bmm (TF32 off) at the Gram NST's
-    512-px tap shapes and the 2019 relu1_1 shape, plus f32 and odd cases;
-    times; and a profiler proof on one Gram-loss closure."""
+    """The Gram kernels against an f64 Gram and the plain bmm (TF32 off) at
+    the eight style-tap shapes and odd ones, on both kernels; each tap timed
+    against the plain version and bf16 torch.bmm, with its bound; a profiler
+    proof that a Gram-loss closure launches the tensor-core kernel and an
+    f32 Gram the CUDA-core one."""
     import torch
     from iris_style_transfer_tpu_torch.ops import blockwise_gram as bg
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    n_sm = bg._n_sm(0)
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        cases = [(sh, torch.bfloat16) for sh in TAPS_512 + (TAPS_2019[0],)]
+        cases = [(sh, torch.bfloat16) for sh in TAPS_512 + TAPS_2019]
         cases += [((4, 512, 64, 64), torch.float32), ((2, 130, 9, 7), torch.float32),
-                  ((3, 5, 7, 9), torch.bfloat16)]
+                  ((3, 5, 7, 9), torch.bfloat16), ((2, 130, 9, 7), torch.bfloat16),  # C % 8 != 0: CUDA cores
+                  ((3, 24, 7, 9), torch.bfloat16), ((2, 136, 9, 7), torch.bfloat16),  # HW, C off the tiles
+                  ((1, 8, 1, 1), torch.bfloat16)]
         worst = 0.0
         for shape, dtype in cases:
             b, c, h, w = shape
             x = torch.relu(torch.randn((b, h, w, c), generator=gen, device="cuda")).to(dtype).permute(0, 3, 1, 2)
+            pl = bg.plan(shape, dtype, x.data_ptr() % 16 == 0, n_sm)
             g_k = bg._kernel_gram(x)
             g_p = bg.gram_matrix_plain(x)
             g64 = bg.gram_f64(x)
@@ -618,34 +703,41 @@ def phase_kernels_gram(card: str):
             ok, err = bg.within_tolerance(g_k, g_p)
             e_p = bg.within_f64_tolerance(g_p, g64)[1]
             scale = g64.abs().max().item()
-            if not (ok64 and ok):
-                raise AssertionError(f"gram kernel out of tolerance at {shape} {dtype}: vs f64 {e_k} "
-                                     f"(bound 1e-5 * {scale}), vs plain {err} (bound 1e-4 * max|G|)")
+            if not (ok64 and ok and torch.equal(g_k, g_k.transpose(1, 2))):
+                raise AssertionError(f"gram kernel out of tolerance at {shape} {dtype} ({pl.kernel}): vs f64 {e_k} "
+                                     f"(bound 1e-5 * {scale}), vs plain {err} (bound 1e-4 * max|G|), or not symmetric")
             worst = max(worst, err)
-            _log("kernels", f"gram {shape} {str(dtype)[6:]}: vs f64 max_abs_err {e_k:.3g} ({e_k / scale:.3g} "
-                 f"of max|G| {scale:.4g}, within 1e-5); vs plain {err:.3g} ({err / scale:.3g}, within 1e-4); "
-                 f"plain vs f64 {e_p / scale:.3g}")
+            _log("kernels", f"gram {shape} {str(dtype)[6:]} on gram_{pl.kernel}_kernel (wg {pl.wg}, {pl.splits} "
+                 f"splits of {pl.chunk} px, {pl.items} items on {pl.blocks} blocks): vs f64 max_abs_err {e_k:.3g} "
+                 f"({e_k / scale:.3g} of max|G| {scale:.4g}, within 1e-5); vs plain {err:.3g} ({err / scale:.3g}, "
+                 f"within 1e-4); plain vs f64 {e_p / scale:.3g}; symmetric")
             del x, g_k, g_p, g64
         ms = {}
-        for shape in (TAPS_2019[0], TAPS_512[0]):
+        for shape in TAPS_512 + TAPS_2019:
             b, c, h, w = shape
             x = torch.relu(torch.randn((b, h, w, c), generator=gen, device="cuda")).to(torch.bfloat16)
             xf = x.reshape(b, h * w, c)  # the NHWC bytes as (B, HW, C), for the library bmm
             x = x.permute(0, 3, 1, 2)
             t = _turns({"plain": lambda: bg.gram_matrix_plain(x), "kernel": lambda: bg._kernel_gram(x),
                         "library": lambda: torch.bmm(xf.transpose(1, 2), xf)})
+            # device time too: where a call is short, events hold the wrapper's host time
+            t["kernel_device"] = _device_ms(lambda: bg._kernel_gram(x))
+            t["library_device"] = _device_ms(lambda: torch.bmm(xf.transpose(1, 2), xf))
             gflop = 2 * b * h * w * c * c / 1e9
             t["bound"] = _bound(_nbytes(x) + b * c * c * 4, gflop * 1e9)
-            _log("kernels", f"gram {shape} bf16 ms/call on {card}: kernel {t['kernel']:.4f} (plain "
-                 f"{t['plain']:.4f}, bf16 torch.bmm {t['library']:.4f}, bound {t['bound'][0]:.4f}); "
-                 f"{gflop / t['kernel']:.2f} TFLOP/s of the {gflop:.2f} GFLOP contraction")
+            _log("kernels", f"gram {shape} bf16 ms/call on {card}: kernel {t['kernel']:.4f} (device "
+                 f"{t['kernel_device']:.4f}; plain {t['plain']:.4f}, bf16 torch.bmm {t['library']:.4f}, device "
+                 f"{t['library_device']:.4f}; bound {t['bound'][0]:.4f} by {t['bound'][1]}, "
+                 f"{100 * t['bound'][0] / t['kernel_device']:.1f}% of it in device time); "
+                 f"{gflop / t['kernel_device']:.2f} TFLOP/s of the {gflop:.2f} GFLOP contraction in device time "
+                 f"(bmm {gflop / t['library_device']:.2f}); {_nbytes(x) / t['kernel_device'] / 1e9:.2f} TB/s of x")
             ms[shape] = t
             del x, xf
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
-    # the path launches it: one Gram-loss closure at (4, 3, 512, 512) bf16
-    from torch.profiler import ProfilerActivity, profile
+    # the path launches the tensor-core kernel: one Gram-loss closure at
+    # (4, 3, 512, 512) bf16; an f32 Gram launches the CUDA-core one
     from iris_style_transfer_tpu_torch.models import VGG19
     from iris_style_transfer_tpu_torch.ops.losses import style_loss_gram
 
@@ -660,22 +752,31 @@ def phase_kernels_gram(card: str):
         _, _, st = VGG19.apply(params, img, compute_dtype=torch.bfloat16, truncate=True)
         torch.autograd.grad(style_loss_gram(st, targets, gram_fn=bg.gram_matrix), img)
 
+    xf32 = torch.rand((4, 64, 64, 512), generator=gen, device="cuda").permute(0, 3, 1, 2)
     closure()
+    bg._kernel_gram(xf32)
     torch.cuda.synchronize()
-    before = bg.LAUNCHES["gram_matrix"]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        closure()
-        torch.cuda.synchronize()
-    counted = bg.LAUNCHES["gram_matrix"] - before
-    traced = sum(e.count for e in prof.key_averages() if "gram_kernel" in e.key)
-    if counted != 4 or traced == 0:
-        raise AssertionError(f"one Gram-loss closure counted {counted} gram launches and traced gram_kernel "
-                             f"{traced} times; 4 launches, traced, expected")
-    _log("kernels", f"one Gram-loss closure at (4,3,512,512) bf16: {counted} gram launches counted, profiler "
-         f"traced gram_kernel {traced} times")
+    traced = {}
+    def f32_grams():  # three calls: the profiler has missed single launches here
+        for _ in range(3):
+            bg._kernel_gram(xf32)
+
+    for name, fn, want, kernel in (("closure", closure, 4, "gram_tc_kernel"), ("f32", f32_grams, 3, "gram_fma_kernel")):
+        before = bg.LAUNCHES["gram_matrix"]
+        ev, tries = _trace(fn, lambda ev: any(kernel in e.key for e in ev), f"{kernel} in the {name} Grams")
+        counted = (bg.LAUNCHES["gram_matrix"] - before) / tries
+        traced[name] = {k: sum(e.count for e in ev if f"gram_{k}_kernel" in e.key) for k in ("tc", "fma")}
+        if counted != want:
+            raise AssertionError(f"{name}: counted {counted} gram launches; {want} expected")
+    if not (traced["closure"]["tc"] and not traced["closure"]["fma"] and traced["f32"]["fma"]
+            and not traced["f32"]["tc"]):
+        raise AssertionError(f"the profiler traced {traced}: a bf16 Gram-loss closure must launch gram_tc_kernel "
+                             "only, an f32 Gram gram_fma_kernel only")
+    _log("kernels", f"one Gram-loss closure at (4,3,512,512) bf16: 4 gram launches counted, profiler traced "
+         f"gram_tc_kernel {traced['closure']['tc']} times and gram_fma_kernel 0; three f32 Grams at (4,512,64,64) "
+         f"traced gram_fma_kernel {traced['f32']['fma']} time(s) and gram_tc_kernel 0")
     return {"err": worst, "ms": ms[TAPS_512[0]]["kernel"], "plain_ms": ms[TAPS_512[0]]["plain"],
-            "library_ms": ms[TAPS_512[0]]["library"], "bound": ms[TAPS_512[0]]["bound"],
-            "ms_2019": ms[TAPS_2019[0]]["kernel"], "plain_ms_2019": ms[TAPS_2019[0]]["plain"]}
+            "library_ms": ms[TAPS_512[0]]["library"], "bound": ms[TAPS_512[0]]["bound"], "taps": ms}
 
 
 def _conv1_inputs(shape, cout, dtype, gen):
@@ -753,23 +854,22 @@ def phase_kernels_conv1(card: str):
         del x, wt, bias, y
     ms = timed[(64, 3, 224, 224)]
 
-    from torch.profiler import ProfilerActivity, profile
-
     params = VGG19.init(torch.Generator().manual_seed(SEED), device="cuda")
     img = torch.rand((64, 3, 224, 224), generator=gen, device="cuda")
     with torch.no_grad():
         VGG19.apply(params, img, compute_dtype=torch.bfloat16)
         torch.cuda.synchronize()
         before = c1.LAUNCHES["conv1"]
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            VGG19.apply(params, img, compute_dtype=torch.bfloat16)
-            torch.cuda.synchronize()
-    # bf16 takes the tensor-core kernel
-    traced = sum(e.count for e in prof.key_averages() if "conv1_mma_kernel" in e.key)
-    if traced == 0 or c1.LAUNCHES["conv1"] - before != 1:
-        raise AssertionError(f"one VGG19 pass traced conv1_mma_kernel {traced} times, counted "
-                             f"{c1.LAUNCHES['conv1'] - before} launches; 1 launch, traced, expected")
-    _log("kernels", f"one VGG19 forward at (64,3,224,224) bf16: 1 conv1 launch counted, profiler traced "
+        # three passes: the profiler has missed single launches here; bf16 takes the tensor-core kernel
+        ev, tries = _trace(lambda: [VGG19.apply(params, img, compute_dtype=torch.bfloat16) for _ in range(3)],
+                           lambda ev: any("conv1_mma_kernel" in e.key for e in ev),
+                           "conv1_mma_kernel in three VGG19 forwards")
+    traced = sum(e.count for e in ev if "conv1_mma_kernel" in e.key)
+    counted = (c1.LAUNCHES["conv1"] - before) / tries
+    if counted != 3:
+        raise AssertionError(f"three VGG19 passes traced conv1_mma_kernel {traced} times, counted "
+                             f"{counted} launches a trace; 3 launches (one a pass), traced, expected")
+    _log("kernels", f"three VGG19 forwards at (64,3,224,224) bf16: 3 conv1 launches counted, profiler traced "
          f"conv1_mma_kernel {traced} time(s)")
     return {"err": worst, "ms": ms["kernel"], "plain_ms": ms["plain"], "library_ms": ms["library"],
             "bound": ms["bound"]}
@@ -840,16 +940,57 @@ def _compare_histories(s_plain, s_stats) -> None:
          f"{r.max().item():.4g}], final {r[-1].item():.4g}")
 
 
+def _gram_closure_split() -> dict:
+    """One Gram-loss closure at (4, 3, 512, 512) bf16 on seeded VGG19
+    weights: its wall time (10 closures on the host clock, synchronized),
+    its device time and the Gram kernels' share of it (torch.profiler over
+    5 closures), in ms.  Wall above device is time the card waits on the
+    host.  Uses only names the port has had since its Gram kernel, so it
+    measures an earlier tree's package as well."""
+    import torch
+    from iris_style_transfer_tpu_torch.models import VGG19
+    from iris_style_transfer_tpu_torch.ops import blockwise_gram as bg
+    from iris_style_transfer_tpu_torch.ops.losses import style_loss_gram
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    params = VGG19.cast(VGG19.init(torch.Generator().manual_seed(SEED), device="cuda"), torch.bfloat16)
+    img = torch.rand((4, 3, 512, 512), generator=gen, device="cuda").requires_grad_(True)
+    with torch.no_grad():
+        targets = [bg.gram_matrix(f) for f in VGG19.apply(params, img.detach(), compute_dtype=torch.bfloat16,
+                                                          truncate=True)[2]]
+
+    def closure():
+        _, _, st = VGG19.apply(params, img, compute_dtype=torch.bfloat16, truncate=True)
+        torch.autograd.grad(style_loss_gram(st, targets, gram_fn=bg.gram_matrix), img)
+
+    for _ in range(3):
+        closure()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        closure()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 10 * 1e3
+    ev, _ = _trace(lambda: [closure() for _ in range(5)], lambda ev: any("gram" in e.key for e in _device_events(ev)),
+                   "the Gram kernels in five Gram-loss closures", cpu=False)
+    device = sum(e.self_device_time_total for e in _device_events(ev)) / 5 / 1e3
+    gram = sum(e.self_device_time_total for e in _device_events(ev) if "gram" in e.key) / 5 / 1e3
+    return {"wall_ms": wall, "device_ms": device, "gram_device_ms": gram}
+
+
 def phase_nst_gram(card: str):
     """The Gram-loss NST at bench.py's Gram secondary shape.  On seeded
     VGG19 weights the Gram loss is about 2.5e-7 at style weight 1, too
     small for an L-BFGS step to move a bf16 image; the style weight is the
-    Gatys setting, 1e6."""
+    Gatys setting, 1e6.  Then one closure's wall and device time."""
     rate, _, s_hist = _nst_loop({"bn_loss": False, "s_loss_weight": GRAM_STYLE_WEIGHT}, (4, 3, 512, 512),
                                 GRAM_NST_CLOSURES, SEED + 6)
     _log("nst_gram", f"{GRAM_NST_CLOSURES} Gram-loss closures at (4,3,512,512) bf16, style weight "
          f"{GRAM_STYLE_WEIGHT:g}, no host sync: "
          f"{rate:.2f} closures/s; s_loss {s_hist[0].item():.6g} -> {s_hist[-1].item():.6g} on {card}")
+    split = _gram_closure_split()
+    _log("nst_gram", f"one Gram-loss closure at (4,3,512,512) bf16: wall {split['wall_ms']:.3f} ms, device "
+         f"{split['device_ms']:.3f} ms, of which the Gram kernels {split['gram_device_ms']:.3f} ms on {card}")
     return rate
 
 

@@ -45,6 +45,7 @@ of elements equal.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -58,8 +59,41 @@ LAUNCHES = {"conv1": 0}
 
 MAX_CIN = 4
 MAX_COUT = 128
+MAX_GRID_X = 2**31 - 1
+TILE_H, TILE_W = 16, 32  # output rows x columns of a tile, both kernels (kTCH x kTCW, kTH x kTW)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
+
+
+class Plan(NamedTuple):
+    """The tiles of one launch: ``tiles_h x tiles_w`` output tiles of
+    ``TILE_H x TILE_W`` pixels per image, numbered image-slowest.  The bf16
+    kernel's persistent blocks (one wave) walk them by a 64-bit index; the
+    f32 kernel takes one block per tile on a 1-D grid."""
+
+    kernel: str  # "mma" (bf16, tensor cores) or "fma" (f32, CUDA cores)
+    tiles_h: int
+    tiles_w: int
+    tiles: int  # B * tiles_h * tiles_w
+
+
+def plan(shape: tuple[int, int, int, int], dtype: torch.dtype) -> Plan:
+    """The launch for an NCHW ``shape``; raises where the f32 kernel's grid
+    would pass 2^31 - 1 blocks (over 10^12 output pixels)."""
+    bsz, _, h, w = shape
+    tiles_h, tiles_w = -(-h // TILE_H), -(-w // TILE_W)
+    tiles = bsz * tiles_h * tiles_w
+    kernel = "mma" if dtype == torch.bfloat16 else "fma"
+    if kernel == "fma" and tiles > MAX_GRID_X:
+        raise ValueError(f"conv1: {tiles} tiles of {shape} pass the f32 kernel's grid of 2^31 - 1 blocks")
+    return Plan(kernel, tiles_h, tiles_w, tiles)
+
+
+def tile_origin(pl: Plan, tile: int) -> tuple[int, int, int]:
+    """(image, first row, first column) of ``tile``, as both kernels decode it."""
+    per_image = pl.tiles_h * pl.tiles_w
+    rest = tile % per_image
+    return tile // per_image, rest // pl.tiles_w * TILE_H, rest % pl.tiles_w * TILE_W
 
 
 def _library() -> ctypes.CDLL:
@@ -96,8 +130,7 @@ def _kernel_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tens
         raise ValueError(f"conv1: expected dtype float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError(f"conv1: expected channels_last (NHWC) memory, got strides {x.stride()}")
-    if bsz > 65535:
-        raise ValueError(f"conv1: a batch of {bsz} exceeds the kernel's grid (65535)")
+    plan((bsz, cin, h, wd), x.dtype)  # raises where the f32 grid cannot take the shape
     w_hwio = w.to(x.dtype).float().permute(2, 3, 1, 0).contiguous()
     bias = b.float().contiguous()
     y = torch.empty((bsz, cout, h, wd), dtype=x.dtype, device=x.device, memory_format=torch.channels_last)

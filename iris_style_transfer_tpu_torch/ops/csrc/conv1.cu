@@ -51,7 +51,9 @@
 //   - neighbouring threads hold neighbouring channel groups of one pixel,
 //     so a warp's 32-byte stores cover whole runs of the NHWC output.
 //
-// Offsets are 64-bit; B, H and W are arbitrary (edge tiles mask).
+// Offsets are 64-bit; B, H and W are arbitrary (edge tiles mask).  The
+// bf16 kernel's blocks walk a 64-bit tile index; the f32 kernel has one
+// block per tile on a 1-D grid, so B * tiles < 2^31 (1.1e12 pixels).
 //
 // C interface for ctypes: the entry returns cudaGetLastError() after the
 // launch on the caller's stream; dtype 0 = float32, 1 = bfloat16.
@@ -269,16 +271,18 @@ __device__ __forceinline__ void store_group(float* dst, const float* v, int n, b
 template <int CIN>
 __global__ void __launch_bounds__(kThreads)
 conv1_kernel(const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ bias,
-             float* __restrict__ y, int64_t H, int64_t W, int cout, int tiles_w) {
+             float* __restrict__ y, int64_t H, int64_t W, int cout, int tiles_h, int tiles_w) {
   __shared__ float xs[(kTH + 2) * (kTW + 2) * CIN];
   __shared__ __align__(16) float ws[9 * CIN * kMaxCout];
   __shared__ float bs[kMaxCout];
 
   const int ngroups = (cout + kG - 1) / kG;
   const int coutp = ngroups * kG;  // weights zero-padded to whole groups
-  const int64_t b = blockIdx.y;
-  const int64_t h0 = (int64_t)(blockIdx.x / tiles_w) * kTH;
-  const int64_t w0 = (int64_t)(blockIdx.x % tiles_w) * kTW;
+  // grid.x = B * tiles_h * tiles_w, the image slowest
+  const int64_t b = blockIdx.x / ((int64_t)tiles_h * tiles_w);
+  const int rest = (int)(blockIdx.x % ((int64_t)tiles_h * tiles_w));
+  const int64_t h0 = (int64_t)(rest / tiles_w) * kTH;
+  const int64_t w0 = (int64_t)(rest % tiles_w) * kTW;
 
   // weights, HWIO f32 [(kh*3+kw)*CIN+ci][cout] -> ws[..][coutp]
   for (int e = threadIdx.x; e < 9 * CIN * coutp; e += kThreads) {
@@ -352,10 +356,9 @@ template <int CIN>
 int launch(const void* x, const float* w, const float* bias, void* y, int64_t B, int64_t H,
            int64_t W, int cout, cudaStream_t stream) {
   const int64_t tiles_h = (H + kTH - 1) / kTH, tiles_w = (W + kTW - 1) / kTW;
-  if (B > 0 && H > 0 && W > 0) {
-    const dim3 grid((unsigned int)(tiles_h * tiles_w), (unsigned int)B);
-    conv1_kernel<CIN><<<grid, kThreads, 0, stream>>>(
-        static_cast<const float*>(x), w, bias, static_cast<float*>(y), H, W, cout, (int)tiles_w);
+  if (B > 0 && H > 0 && W > 0) {  // the wrapper keeps B * tiles_h * tiles_w < 2^31 (ops/conv1.py:plan)
+    conv1_kernel<CIN><<<(unsigned int)(B * tiles_h * tiles_w), kThreads, 0, stream>>>(
+        static_cast<const float*>(x), w, bias, static_cast<float*>(y), H, W, cout, (int)tiles_h, (int)tiles_w);
   }
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-"""Fused depthwise conv + eval batchnorm + SiLU, stride 1, forward only.
+"""Fused depthwise conv + eval batchnorm + SiLU, stride 1, with its gradient.
 
 Replaces the JAX package's TPU kernel ``ops/pallas_depthwise.py:
 dw_conv_bn_silu`` with the hand-written Hopper kernel in
@@ -18,9 +18,18 @@ weight is the port's OIHW depthwise ``(C, 1, k, k)``; the wrapper hands the
 kernel a contiguous ``(k, k, C)`` copy in ``x.dtype``, as the TPU kernel
 casts its weight.  Dispatch follows the tensor's device: a CUDA tensor
 launches the kernel (or raises), a CPU tensor takes the plain torch
-version.  Every caller runs B7 frozen, so there is no backward; an input
-that requires grad under grad mode raises rather than silently getting
-none.
+version.
+
+:func:`dw_conv_bn_silu` is differentiable in ``x``, ``w``, ``a`` and ``b``
+(:class:`DwConvBnSilu`).  The JAX package has no backward kernel for this
+function: its gradient is XLA's, through the grouped conv, the batchnorm
+and the SiLU.  So the backward here is plain torch on either device, in
+f32, from ``acc = dwconv(x, w)`` recomputed as the plain version sums it
+and ``z = a * acc + b``: ``dz = g * silu'(z)``, ``da = sum_BHW dz * acc``,
+``db = sum_BHW dz``, ``dx`` the flipped-tap depthwise conv of ``a * dz``
+(cast to ``x.dtype``) and ``dw`` the per-channel correlation of ``x`` with
+``a * dz``.  Shifted slices, not ``F.conv2d``, so no TF32 enters on the
+card.
 
 The kernel's launch is planned here (:func:`plan`): a thread owns ``vec``
 consecutive channels (4 when C is a multiple of 8 and x is 16-byte
@@ -153,9 +162,6 @@ def _check_input(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Ten
         if tuple(t.shape) != (c,) or t.dtype != torch.float32:
             raise ValueError(f"dw_conv_bn_silu: {name} must be float32 of shape ({c},), "
                              f"got {t.dtype} {tuple(t.shape)}")
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise RuntimeError("dw_conv_bn_silu is forward-only (B7 runs frozen); call it under "
-                           "torch.no_grad() or on a tensor that does not require grad")
     return bsz, c, h, wd
 
 
@@ -213,15 +219,71 @@ def dw_conv_bn_silu_plain(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: 
     return y.to(x.dtype).permute(0, 3, 1, 2)
 
 
-def dw_conv_bn_silu(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                    k: int) -> torch.Tensor:
+def dw_conv_bn_silu_fwd(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                        k: int) -> torch.Tensor:
     """``silu(a * dwconv_kxk(x, w) + b)``: the kernel for a CUDA tensor, the
-    plain version for a CPU tensor."""
+    plain version for a CPU tensor.  No gradient."""
     if x.device.type == "cuda":
         return _kernel_fwd(x, w, a, b, k)
     if x.device.type == "cpu":
         return dw_conv_bn_silu_plain(x, w, a, b, k)
     raise ValueError(f"dw_conv_bn_silu: unsupported device {x.device}")
+
+
+def dw_conv_bn_silu_bwd(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor, k: int,
+                        gy: torch.Tensor, needs: tuple[bool, bool, bool, bool] = (True,) * 4) -> tuple:
+    """``(dx, dw, da, db)`` of :func:`dw_conv_bn_silu` under the cotangent
+    ``gy``, in plain torch and f32 as the module docstring states; an entry
+    whose ``needs`` is False is None."""
+    bsz, c, h, wd = _check_input(x, w, a, b, k)
+    p = (k - 1) // 2
+    xp = F.pad(x.permute(0, 2, 3, 1).float(), (0, 0, p, p, p, p))  # (B, H+2p, W+2p, C)
+    wk = w.to(x.dtype).float()[:, 0]  # (C, k, k): the forward's rounding of w
+    acc = torch.zeros((bsz, h, wd, c), dtype=torch.float32, device=x.device)
+    for dy in range(k):
+        for dx in range(k):
+            acc = acc + xp[:, dy : dy + h, dx : dx + wd, :] * wk[:, dy, dx]
+    z = acc * a + b
+    sig = torch.sigmoid(z)
+    dz = gy.permute(0, 2, 3, 1).float() * (sig * (1 + z * (1 - sig)))
+    da = (dz * acc).sum(dim=(0, 1, 2)) if needs[2] else None
+    db = dz.sum(dim=(0, 1, 2)) if needs[3] else None
+    dacc = dz * a
+    dx = dw = None
+    if needs[0]:
+        dp = F.pad(dacc, (0, 0, p, p, p, p))
+        gx = torch.zeros_like(acc)
+        for dy in range(k):
+            for dx_ in range(k):
+                gx = gx + dp[:, dy : dy + h, dx_ : dx_ + wd, :] * wk[:, k - 1 - dy, k - 1 - dx_]
+        dx = gx.to(x.dtype).permute(0, 3, 1, 2)
+    if needs[1]:
+        taps = [(dacc * xp[:, dy : dy + h, dx_ : dx_ + wd, :]).sum(dim=(0, 1, 2)) for dy in range(k) for dx_ in range(k)]
+        dw = torch.stack(taps, dim=1).reshape(c, 1, k, k).to(w.dtype)
+    return dx, dw, da, db
+
+
+class DwConvBnSilu(torch.autograd.Function):
+    """The fused op with the plain backward of :func:`dw_conv_bn_silu_bwd`;
+    saves ``x``, ``w``, ``a`` and ``b``."""
+
+    @staticmethod
+    def forward(ctx, x, w, a, b, k: int):
+        ctx.save_for_backward(x, w, a, b)
+        ctx.k = k
+        return dw_conv_bn_silu_fwd(x, w, a, b, k)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w, a, b = ctx.saved_tensors
+        return (*dw_conv_bn_silu_bwd(x, w, a, b, ctx.k, gy, tuple(ctx.needs_input_grad[:4])), None)
+
+
+def dw_conv_bn_silu(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                    k: int) -> torch.Tensor:
+    """``silu(a * dwconv_kxk(x, w) + b)``, differentiable in x, w, a and b:
+    the kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    return DwConvBnSilu.apply(x, w, a, b, k)
 
 
 def within_tolerance(y_kernel: torch.Tensor, y_plain: torch.Tensor) -> tuple[bool, float]:

@@ -28,6 +28,7 @@ non-negative, ``sum|terms|`` is ``s_plain`` itself.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -41,7 +42,25 @@ LAUNCHES = {"relu_stats_fwd": 0, "relu_stats_bwd": 0}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _THREADS = 256  # the kernels' block size
 _TARGET_BLOCKS = 2048  # forward blocks to aim for: ~16 per SM on 132 SMs
+MAX_GRID_X = 2**31 - 1
 _lib = None
+
+
+class Plan(NamedTuple):
+    """Both kernels' grids.  Forward, 1-D: block k is split ``k % splits``,
+    channel tile ``k // splits % ctiles`` (``ct`` channels, ``256 // ct``
+    pixel lanes) of image ``k // (splits * ctiles)``; split s holds pixels
+    [s * chunk, min((s + 1) * chunk, HW)).  Backward, ``(per_img,
+    img_rows, ceil(B / img_rows))``: block (x, y, z) holds elements
+    [x * 256, +256) of image ``z * img_rows + y``."""
+
+    splits: int
+    chunk: int
+    ct: int
+    ctiles: int
+    fwd_blocks: int
+    per_img: int
+    img_rows: int
 
 
 def _library() -> ctypes.CDLL:
@@ -78,22 +97,29 @@ def _check_cuda(name: str, t: torch.Tensor, shape: tuple[int, ...], dtype: torch
                          f" memory, got strides {t.stride()}")
 
 
-def _splits(b: int, c: int, hw: int) -> int:
-    """HW splits of the forward: enough blocks to fill the card, at least
-    one pixel row of the block's P pixel lanes per split."""
-    ct = min(c, _THREADS)
-    p = _THREADS // ct
-    tiles = b * -(-c // ct)
-    s = max(1, min(-(-_TARGET_BLOCKS // tiles), -(-hw // p), 65535))
-    return -(-hw // -(-hw // s)) if hw else 1  # drop empty splits
+def plan(shape: tuple[int, int, int, int]) -> Plan:
+    """The grids for an NCHW ``shape``: the forward's HW splits give enough
+    blocks to fill the card, each at least one pixel row of the block's
+    pixel lanes, with no empty split.  Raises where a grid's x would pass
+    2^31 - 1 blocks (over 5 * 10^11 elements, more than the card holds)."""
+    b, c, h, w = shape
+    hw = h * w
+    ct = max(1, min(c, _THREADS))
+    ctiles = -(-c // ct)
+    tiles = b * ctiles
+    s = max(1, min(-(-_TARGET_BLOCKS // max(tiles, 1)), -(-hw // (_THREADS // ct))))
+    s = -(-hw // -(-hw // s)) if hw else 1  # drop empty splits
+    pl = Plan(s, -(-hw // s), ct, ctiles, s * tiles, -(-(hw * c) // _THREADS), min(b, 65535))
+    if max(pl.fwd_blocks, pl.per_img) > MAX_GRID_X:
+        raise ValueError(f"relu_stats: {shape} needs {max(pl.fwd_blocks, pl.per_img)} blocks along the grid's x, "
+                         "past its 2^31 - 1")
+    return pl
 
 
 def _kernel_fwd(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     b, c, h, w = _check_input(x)
     _check_cuda("x", x, (b, c, h, w), x.dtype, channels_last=True)
-    if b > 65535:
-        raise ValueError(f"relu_stats: batch {b} exceeds the kernel's grid")
-    s = _splits(b, c, h * w)
+    s = plan((b, c, h, w)).splits
     y = torch.empty_like(x, memory_format=torch.channels_last)
     # freed on return while the kernel may still run: the caching allocator
     # hands the block only to work queued later on this stream
@@ -120,8 +146,7 @@ def _kernel_bwd(x: torch.Tensor, ct_y: torch.Tensor, ct_s1: torch.Tensor,
     _check_cuda("ct_y", ct_y, (b, c, h, w), x.dtype, channels_last=True)
     _check_cuda("ct_s1", ct_s1, (b, c), torch.float32, channels_last=False)
     _check_cuda("ct_s2", ct_s2, (b, c), torch.float32, channels_last=False)
-    if h * w * c >= 2**31 or b > 65535:
-        raise ValueError(f"relu_stats: shape {tuple(x.shape)} exceeds the kernel's grid")
+    plan((b, c, h, w))  # raises where the grid cannot take the shape
     g = torch.empty_like(x, memory_format=torch.channels_last)
     lib = _library()
     with torch.cuda.device(x.device):

@@ -148,3 +148,28 @@ def test_vgg19_takes_conv1_for_conv1_1_and_matches_jax():
     (dx,) = torch.autograd.grad(c[0], xt, _nchw(ct))
     dx_j = np.asarray(dx_j)
     np.testing.assert_allclose(_nhwc(dx), dx_j, rtol=0, atol=1e-3 * np.abs(dx_j).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 3, 37, 53), (2, 1, 16, 32), (1, 4, 1, 1)])
+def test_conv1_plan_covers_every_output_pixel_once(shape, dtype):
+    b, _, h, w = shape
+    pl = tc.plan(shape, dtype)
+    assert pl.kernel == ("mma" if dtype == torch.bfloat16 else "fma") and pl.tiles == b * pl.tiles_h * pl.tiles_w
+    px = []
+    for t in range(pl.tiles):
+        image, r0, c0 = tc.tile_origin(pl, t)
+        px += [(image, r, cc) for r in range(r0, min(r0 + tc.TILE_H, h)) for cc in range(c0, min(c0 + tc.TILE_W, w))]
+    assert sorted(px) == [(i, r, cc) for i in range(b) for r in range(h) for cc in range(w)]
+
+
+def test_conv1_plan_takes_any_batch():
+    """No 65535 batch limit: B = 70,000 is planned on both kernels (not
+    run), its last tile in the last image; only the f32 kernel's 1-D grid
+    past 2^31 - 1 blocks raises."""
+    for dtype in (torch.float32, torch.bfloat16):
+        pl = tc.plan((70_000, 3, 224, 224), dtype)
+        assert pl.tiles == 70_000 * 14 * 7 and tc.tile_origin(pl, pl.tiles - 1) == (69_999, 208, 192)
+    assert tc.plan((2**31, 3, 16, 32), torch.bfloat16).tiles == 2**31
+    with pytest.raises(ValueError, match="2\\^31 - 1"):
+        tc.plan((2**31, 3, 16, 32), torch.float32)

@@ -110,8 +110,31 @@ def test_depthwise_kernel_rejects_other_layouts(cuda):
         dw.dw_conv_bn_silu(x.half(), wt, a, bias, 3)
     with pytest.raises(ValueError, match="float32"):
         dw.dw_conv_bn_silu(x, wt, a.half(), bias, 3)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        dw.dw_conv_bn_silu(x.requires_grad_(True), wt, a, bias, 3)
+    # grad mode is not refused: the kernel's forward carries the Function's backward
+    y = dw.dw_conv_bn_silu(x.requires_grad_(True), wt, a, bias, 3)
+    assert y.grad_fn is not None and torch.autograd.grad(y.sum(), x)[0].shape == x.shape
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,k", [((2, 16, 20, 256), 3), ((3, 13, 7, 40), 5), ((3, 9, 11, 36), 3)])
+def test_depthwise_gradient_matches_autograd_through_plain(cuda, dtype, shape, k):
+    """The Function (kernel forward, plain f32 backward) against autograd
+    through the plain version under one cotangent, on the same values in
+    float32, cast once to each input's dtype (in bf16, autograd would sum
+    the taps' dx contributions in bf16): f32 within 1e-5 of each
+    gradient's largest magnitude; bf16 within 1e-2 (dx and dw are bf16,
+    whose ulp is 2^-8 of the value)."""
+    x, wt, a, bias = _dw_inputs(shape, k, dtype, torch.Generator(device="cuda").manual_seed(7))
+    ct = torch.randn(x.shape, device="cuda").to(dtype).contiguous(memory_format=torch.channels_last)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, wt, a, bias)]
+    got = torch.autograd.grad(dw.dw_conv_bn_silu(*leaves, k), leaves, ct)
+    ref = [t.detach().float().requires_grad_(True) for t in (x, wt, a, bias)]
+    want = torch.autograd.grad(dw.dw_conv_bn_silu_plain(*ref, k), ref, ct.float())
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for g, t, p in zip(got, leaves, want):
+        assert g.dtype == t.dtype
+        err = (g.float() - p.to(g.dtype).float()).abs().max().item()
+        assert err <= tol * p.abs().max().item(), err
 
 
 def test_efficientnet_apply_launches_the_kernel_102_times(cuda):
@@ -161,13 +184,20 @@ def test_relu_stats_kernels_reject_other_layouts_and_dtypes(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 16, 16, 64), (3, 7, 9, 5), (2, 9, 7, 130), (1, 64, 64, 256)])
+@pytest.mark.parametrize("shape", [
+    (2, 16, 16, 64), (1, 64, 64, 256), (2, 32, 32, 128), (1, 16, 24, 512),  # C = 64, 128, 256, 512
+    (3, 7, 9, 5), (2, 9, 7, 130),  # C % 8 != 0: the CUDA-core kernel in both dtypes
+    (3, 7, 9, 24), (2, 9, 7, 136), (1, 1, 1, 8),  # HW off the 128-pixel step, C off the tile
+])
 def test_gram_kernel_within_tolerance(cuda, dtype, shape):
     x = torch.relu(torch.randn(shape, generator=torch.Generator(device="cuda").manual_seed(5), device="cuda"))
     x = x.to(dtype).permute(0, 3, 1, 2)
+    pl = bg.plan(tuple(x.shape), dtype, True, bg._n_sm(0))
+    assert pl.kernel == ("tc" if dtype == torch.bfloat16 and shape[-1] % 8 == 0 else "fma")
     before = bg.LAUNCHES["gram_matrix"]
     g = bg.gram_fwd(x)
     assert bg.LAUNCHES["gram_matrix"] == before + 1
+    assert torch.equal(g, bg.gram_fwd(x))  # the ordered reduction repeats itself bit for bit
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -178,6 +208,16 @@ def test_gram_kernel_within_tolerance(cuda, dtype, shape):
     ok, err = bg.within_f64_tolerance(g, bg.gram_f64(x))
     assert ok, err
     assert torch.equal(g, g.transpose(1, 2))  # mirrored tiles
+
+
+def test_gram_unaligned_bf16_takes_the_cuda_core_kernel(cuda):
+    """TMA needs a 16-byte aligned base: an x 2 bytes into its storage is
+    planned on the CUDA-core kernel and still meets both tolerances."""
+    base = torch.relu(torch.randn(2 * 12 * 10 * 64 + 1, device="cuda")).to(torch.bfloat16)
+    x = base[1:].view(2, 12, 10, 64).permute(0, 3, 1, 2)
+    assert x.data_ptr() % 16 != 0 and bg.plan(tuple(x.shape), x.dtype, False).kernel == "fma"
+    g = bg.gram_fwd(x)
+    assert bg.within_tolerance(g, bg.gram_matrix_plain(x))[0] and bg.within_f64_tolerance(g, bg.gram_f64(x))[0]
 
 
 def test_gram_kernel_rejects_other_layouts_and_dtypes(cuda):
@@ -246,3 +286,27 @@ def test_vgg19_conv1_1_goes_through_the_kernel(cuda):
     _, c, s = VGG19.apply(params, x, compute_dtype=torch.bfloat16, truncate=True)
     torch.autograd.grad(sum(f.float().sum() for f in [*c, *s]), x)
     assert c1.LAUNCHES["conv1"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_take_a_batch_past_65535(cuda, dtype):
+    """The lifted grid limits, run: 70,000 tiny images through relu_stats
+    (its general backward: grid.z carries the images past 65,535), the Gram
+    (in bf16 its tensor-core kernel's work items, in f32 one block per item
+    on a 1-D grid) and conv1 (the f32 kernel's 1-D grid)."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x, ct, a, b2 = _stats_inputs((70_000, 1, 2, 8), dtype, gen)
+    y, s1, s2 = rs.relu_stats_fwd(x)
+    y_p, s1_p, s2_p = rs.relu_stats_fwd_plain(x)
+    assert torch.equal(y, y_p) and rs.sums_within_tolerance(s1, s1_p)[0] and rs.sums_within_tolerance(s2, s2_p)[0]
+    assert torch.equal(rs.relu_stats_bwd(x, ct, a, b2), rs.relu_stats_bwd_plain(x, ct, a, b2))
+    g = bg.gram_fwd(torch.relu(x))
+    assert bg.within_f64_tolerance(g, bg.gram_f64(torch.relu(x)))[0]
+    xc = torch.rand((70_000, 2, 3, 3), generator=gen, device="cuda").to(dtype).permute(0, 3, 1, 2)
+    wt, bias = torch.randn((16, 3, 3, 3), generator=gen, device="cuda"), torch.randn(16, generator=gen, device="cuda")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        assert c1.within_tolerance(c1.conv1_fwd(xc, wt, bias), c1.conv1_fwd_plain(xc, wt, bias))[0]
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32

@@ -6,6 +6,12 @@ own CPU form) at the shapes of ``tests/test_layers.py`` plus one odd shape
 (H = 13, C = 40), in float32 with rtol 1e-5 and in bfloat16 within the JAX
 test's 0.05.  ``_mbconv`` is held to the JAX block with ``PALLAS_DW``
 off (grouped XLA conv) in float32 with rtol 1e-4 of the output's scale.
+
+Gradients: the op's (x, w, a, b) against ``jax.grad`` of the JAX package's
+XLA form of it (the grouped conv of ``_mbconv``, the folded batchnorm,
+SiLU), and ``_mbconv``'s (x and every parameter) against ``jax.grad`` of the
+JAX block, in float32 within 1e-3 of each gradient's largest magnitude
+(f32 sums over B, H, W taken in another order).
 """
 
 import numpy as np
@@ -19,7 +25,7 @@ from iris_style_transfer_tpu.models import efficientnet as jeff
 from iris_style_transfer_tpu.ops import pallas_depthwise as jdw
 
 from iris_style_transfer_tpu_torch.models import efficientnet as teff
-from iris_style_transfer_tpu_torch.models.port import from_jax
+from iris_style_transfer_tpu_torch.models.port import from_jax, to_jax
 from iris_style_transfer_tpu_torch.ops import depthwise as tdw
 
 
@@ -61,22 +67,61 @@ def test_dw_conv_bn_silu_matches_pallas_interpret(shape, k, dtype):
 
 
 def test_dw_cpu_call_launches_no_kernel_and_refuses_grad():
+    """A CPU call launches no kernel, and grad mode is no longer refused:
+    x, w, a and b all get the gradient of autograd through the plain
+    version (the name predates the backward)."""
     x, w, a, b = _inputs((1, 5, 6, 8), 3, seed=0)
     args = (torch.from_numpy(w).permute(3, 2, 0, 1), torch.from_numpy(a), torch.from_numpy(b), 3)
     before = dict(tdw.LAUNCHES)
     tdw.dw_conv_bn_silu(_nchw(x), *args)
     assert tdw.LAUNCHES == before
-    xg = _nchw(x).requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        tdw.dw_conv_bn_silu(xg, *args)
+    leaves = [_nchw(x).requires_grad_(True), *(t.clone().requires_grad_(True) for t in args[:3])]
+    got = torch.autograd.grad(tdw.dw_conv_bn_silu(*leaves, 3).square().sum(), leaves)
+    want = torch.autograd.grad(tdw.dw_conv_bn_silu_plain(*leaves, 3).square().sum(), leaves)
+    for g, v in zip(got, want):
+        torch.testing.assert_close(g, v, rtol=1e-5, atol=1e-5 * v.abs().max().item())
     with torch.no_grad():
-        tdw.dw_conv_bn_silu(xg, *args)  # frozen use is fine
+        assert tdw.dw_conv_bn_silu(*leaves, 3).grad_fn is None  # frozen use records nothing
     with pytest.raises(ValueError, match="k must be 3 or 5"):
         tdw.dw_conv_bn_silu(_nchw(x), args[0], args[1], args[2], 7)
     with pytest.raises(ValueError, match="float32"):
         tdw.dw_conv_bn_silu(_nchw(x), args[0], args[1].double(), args[2], 3)
     with pytest.raises(ValueError, match="unsupported device"):
         tdw.dw_conv_bn_silu(_nchw(x).to("meta"), args[0], args[1], args[2], 3)
+
+
+def _jax_dw_conv_bn_silu(x, w, a, b, k):
+    """The JAX package's XLA form of the fused op, as ``_mbconv`` computes it
+    with ``PALLAS_DW`` off: the grouped conv (symmetric (k - 1) / 2 padding
+    is TF-"same" at stride 1), the folded batchnorm, SiLU."""
+    p = (k - 1) // 2
+    acc = jax.lax.conv_general_dilated(x, w, (1, 1), [(p, p), (p, p)], dimension_numbers=("NHWC", "HWIO", "NHWC"),
+                                       feature_group_count=x.shape[-1])
+    return jax.nn.silu(acc * a + b)
+
+
+def _close(got, want, rtol=1e-3):
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(np.asarray(got, np.float32), want, rtol=rtol, atol=rtol * np.abs(want).max())
+
+
+@pytest.mark.parametrize("shape,k", [((2, 9, 11, 16), 3), ((1, 13, 7, 40), 5), ((1, 9, 11, 36), 3),
+                                     ((2, 6, 5, 8), 5), ((1, 1, 17, 8), 3)])
+def test_dw_conv_bn_silu_gradients_match_jax(shape, k):
+    """The Function's gradient in x, w, a and b against jax.grad of the JAX
+    package's XLA form, under a random cotangent."""
+    x, w, a, b = _inputs(shape, k, seed=30 + k)
+    ct = np.random.default_rng(k).standard_normal(shape).astype(np.float32)
+    want = jax.grad(lambda *v: jnp.sum(_jax_dw_conv_bn_silu(*v, k) * ct), argnums=(0, 1, 2, 3))(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(a), jnp.asarray(b))
+    leaves = [_nchw(x).requires_grad_(True), from_jax({"w": w})["w"].requires_grad_(True),
+              torch.from_numpy(a).requires_grad_(True), torch.from_numpy(b).requires_grad_(True)]
+    dx, dw, da, db = torch.autograd.grad(tdw.dw_conv_bn_silu(*leaves, k), leaves, _nchw(ct))
+    assert dx.is_contiguous(memory_format=torch.channels_last) and dw.shape == (shape[-1], 1, k, k)
+    _close(_nhwc(dx), want[0])
+    _close(dw[:, 0].permute(1, 2, 0)[:, :, None, :].numpy(), want[1])  # (C, 1, k, k) -> (k, k, 1, C)
+    _close(da.numpy(), want[2])
+    _close(db.numpy(), want[3])
 
 
 def test_within_tolerance_bounds():
@@ -178,3 +223,34 @@ def test_mbconv_matches_jax(expand, k, stride, cin, cout, h):
     got = _nhwc(teff._mbconv(from_jax(p), xt, expand, k, stride, cin, cout))
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("expand,k,stride,cin,cout,h", [
+    (1, 3, 1, 16, 8, 16),   # no expand conv; the fused op
+    (6, 3, 2, 8, 12, 16),   # stride 2: the plain conv path
+    (6, 5, 1, 8, 8, 16),    # the fused op, with the residual
+    (6, 5, 2, 8, 16, 13),   # stride 2 at an odd height
+])
+def test_mbconv_gradients_match_jax(expand, k, stride, cin, cout, h):
+    """The gradient of the block in x and in every parameter (through the
+    folded batchnorm into a and b) against jax.grad of the JAX block."""
+    rng = np.random.default_rng(k * 10 + stride + 1)
+    shapes = jax.eval_shape(lambda key: jeff._init_mbconv(key, expand, k, cin, cout, jnp.float32),
+                            jax.random.PRNGKey(0))
+    p = _fill(shapes, rng)
+    x = rng.standard_normal((2, h, 20, cin)).astype(np.float32)
+    out_shape = jax.eval_shape(lambda v: jeff._mbconv(p, v, expand, k, stride, cin, cout), x).shape
+    ct = rng.standard_normal(out_shape).astype(np.float32)
+    gx_j, gp_j = jax.grad(lambda v, q: jnp.sum(jeff._mbconv(q, v, expand, k, stride, cin, cout) * ct),
+                          argnums=(0, 1))(jnp.asarray(x), p)
+    tp = from_jax(p)
+    leaves, treedef = jax.tree_util.tree_flatten(tp)
+    for t in leaves:
+        t.requires_grad_(True)
+    xt = _nchw(x).contiguous(memory_format=torch.channels_last).requires_grad_(True)
+    out = teff._mbconv(tp, xt, expand, k, stride, cin, cout)
+    grads = torch.autograd.grad(out, [xt, *leaves], _nchw(ct), allow_unused=True)
+    _close(_nhwc(grads[0]), gx_j)
+    got = to_jax(jax.tree_util.tree_unflatten(
+        treedef, [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads[1:])]))
+    jax.tree_util.tree_map(_close, got, jax.tree_util.tree_map(np.asarray, gp_j))

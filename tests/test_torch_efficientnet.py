@@ -7,7 +7,10 @@ to 64 x 64, the smallest size whose height and width divide by 32.
 Tolerances: float32 logits rtol 1e-3 of their scale; labels after the
 flip-TTA average >= 99% equal in float32 and >= 98% in bfloat16 (argmax
 flips where two classes nearly tie, and bf16 rounds at other points in the
-two frameworks).
+two frameworks); the gradient of the logits under a random cotangent, in
+the input and in every parameter, rtol 1e-3 of each gradient's scale (the
+port's depthwise backward is its own plain-torch Function, the JAX one
+XLA's).
 """
 
 import numpy as np
@@ -22,7 +25,7 @@ from iris_style_transfer_tpu.ops.image import imagenet_normalize as j_normalize
 
 from iris_style_transfer_tpu_torch.data.synthetic import synthetic_eye_batch
 from iris_style_transfer_tpu_torch.models import efficientnet as teff
-from iris_style_transfer_tpu_torch.models.port import from_jax
+from iris_style_transfer_tpu_torch.models.port import from_jax, to_jax
 
 
 def _fill(shapes, rng):
@@ -89,6 +92,31 @@ def test_logits_float32_match_jax(b7, frames):
                                        .contiguous(memory_format=torch.channels_last))
     got = got.permute(0, 2, 3, 1).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3 * np.abs(want).max())
+
+
+def test_logits_gradients_match_jax(b7, frames):
+    """The whole U-Net is differentiable in the port as in the JAX package
+    (``tools/replicate_synthetic_gaze.py`` trains through it): every
+    parameter's gradient and the input's, against jax.grad."""
+    _, jp, tp = b7
+    x = np.pad(np.repeat(frames, 3, axis=-1), ((0, 0), (8, 8), (0, 0), (0, 0)))
+    x = np.array(j_normalize(jnp.asarray(x)))
+    ct = np.random.default_rng(5).standard_normal((1, 64, 64, 4)).astype(np.float32)
+    gx_j, gp_j = jax.jit(jax.grad(lambda v, q: jnp.sum(jeff.EfficientNet.logits(q, v) * ct), argnums=(0, 1)))(
+        jnp.asarray(x), jp)
+    leaves, treedef = jax.tree_util.tree_flatten(jax.tree_util.tree_map(lambda t: t.clone().requires_grad_(True), tp))
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last).requires_grad_(True)
+    out = teff.EfficientNet.logits(jax.tree_util.tree_unflatten(treedef, leaves), xt)
+    grads = torch.autograd.grad(out, [xt, *leaves], torch.from_numpy(ct).permute(0, 3, 1, 2), allow_unused=True)
+
+    def close(got, want):
+        want = np.asarray(want)
+        np.testing.assert_allclose(np.asarray(got), want, rtol=1e-3, atol=1e-3 * np.abs(want).max())
+
+    close(grads[0].permute(0, 2, 3, 1).numpy(), gx_j)
+    got = to_jax(jax.tree_util.tree_unflatten(
+        treedef, [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads[1:])]))
+    jax.tree_util.tree_map(close, got, gp_j)
 
 
 @pytest.mark.parametrize("dtype,min_equal", [("float32", 0.99), ("bfloat16", 0.98)])

@@ -112,3 +112,40 @@ def test_sums_tolerance_is_relative_to_the_sum():
     assert rs.sums_within_tolerance(s + torch.tensor([[5e-4, 0.0]]), s)[0]
     assert not rs.sums_within_tolerance(s + torch.tensor([[2e-3, 0.0]]), s)[0]
     assert not rs.sums_within_tolerance(s + torch.tensor([[0.0, 1e-9]]), s)[0]
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 7, 9), (2, 300, 7, 9), (1, 1, 1, 1), (4, 64, 16, 16), (2, 512, 3, 5)])
+def test_plan_covers_every_element_once(shape):
+    """Both grids as the kernels decode them: the forward's blocks hit each
+    (image, channel, pixel) once through (split, channel tile, lane, pixel
+    lane), the backward's each element once."""
+    b, c, h, w = shape
+    hw = h * w
+    pl = rs.plan(shape)
+    lanes = 256 // pl.ct
+    fwd = []
+    for k in range(pl.fwd_blocks):
+        split, rest = k % pl.splits, k // pl.splits
+        ctile, image = rest % pl.ctiles, rest // pl.ctiles
+        for lane in range(pl.ct):
+            ch = ctile * pl.ct + lane
+            if ch < c:
+                for p in range(lanes):
+                    fwd += [(image, ch, px) for px in range(split * pl.chunk + p, min((split + 1) * pl.chunk, hw), lanes)]
+    assert sorted(fwd) == [(i, ch, px) for i in range(b) for ch in range(c) for px in range(hw)]
+    bwd = [(z * pl.img_rows + y, x * 256 + t) for x in range(pl.per_img) for y in range(pl.img_rows)
+           for z in range(-(-b // pl.img_rows)) for t in range(256) if z * pl.img_rows + y < b]
+    assert sorted(e for e in bwd if e[1] < hw * c) == [(i, e) for i in range(b) for e in range(hw * c)]
+
+
+def test_plan_takes_any_batch_and_large_images():
+    """No batch limit and no 2^31 limit on an image's elements: B = 70,000
+    and an 8192 x 8192 x 64 image are planned (not run); only a grid past
+    2^31 - 1 blocks raises, with the reason."""
+    pl = rs.plan((70_000, 64, 224, 224))
+    assert pl.fwd_blocks == 70_000 * pl.splits * pl.ctiles < 2**31
+    assert pl.img_rows == 65_535 and pl.per_img * 256 == 224 * 224 * 64  # images 65,535.. take grid.z = 1
+    assert rs.plan((1, 64, 8192, 8192)).per_img * 256 >= 2**31
+    for shape in ((2**31, 8, 1, 1), (1, 512, 2**20, 2**20)):  # the forward's blocks; one image's
+        with pytest.raises(ValueError, match="2\\^31 - 1"):
+            rs.plan(shape)
