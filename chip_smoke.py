@@ -70,6 +70,19 @@ exit:
                estimator-2 step at the JAX default bs 128 (or the largest
                of 96 and 64 that fits) with its peak memory.
 
+ 10. real_data — the four mains from fake OpenEDS2019 and OpenEDS2020
+               trees written at 400x640 from the twin
+               (``data/fake_openeds.py``; every PNG row filter): the 2019
+               IST main and ``iris_classification`` at bs 64, the 2020 IST
+               main at bs 128 (its prediction files bit-equal, with cuDNN's
+               deterministic algorithms, to those of the same frames fed
+               from memory in the stream's order; depthwise 102 x (1 + 2 x
+               128 / SEG_CHUNK)), ``gaze_estimation`` with estimator 1
+               (102 depthwise launches per B7 apply of the landmark
+               extraction) and estimator 2 (bs 128, streamed); the decode
+               rate per filter type on 1 thread and on the loader's 8,
+               beside the estimator-2 trainer's frames/s.
+
 In every main-path phase conv1 launches exactly once per VGG19 pass.
 
 The lines before the last are the kernel report ({"kernels": [...]}) and
@@ -1000,10 +1013,14 @@ def _reset(counters) -> None:
             counts[k] = 0
 
 
-def _run_main(wl, argv: list[str], counters: tuple[dict, ...]):
-    """``wl.main(argv)`` in a temporary directory, every count in
-    ``counters`` set to 0 just before and read just after; also counts the
-    NST calls.  Returns (results, launches, nst_calls, wall seconds)."""
+def _run_main(wl, argv: list[str], counters: tuple[dict, ...], data_dir: str | None = None,
+              arrays: dict | None = None):
+    """``wl.main(argv)`` in a temporary directory, on the data tree under
+    ``data_dir`` or on the synthetic twin, every count in ``counters`` set
+    to 0 just before and read just after; also counts the NST calls.  With
+    ``arrays``, every ``.npy`` file the main wrote is loaded into it by
+    name.  Returns (results, launches, nst_calls, wall seconds)."""
+    import numpy as np
     import torch
 
     real, calls = wl.cached_nst_program, [0]
@@ -1024,10 +1041,12 @@ def _run_main(wl, argv: list[str], counters: tuple[dict, ...]):
         try:
             _reset(counters)
             t0 = time.perf_counter()
-            results = wl.main([*argv, "--data_dir", os.path.join(tmp, "no_data"), "--device", "cuda"])
+            results = wl.main([*argv, "--data_dir", data_dir or os.path.join(tmp, "no_data"), "--device", "cuda"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {k: v for counts in counters for k, v in counts.items()}
+            for root, _, files in os.walk(tmp) if arrays is not None else ():
+                arrays.update({f: np.load(os.path.join(root, f)) for f in files if f.endswith(".npy")})
         finally:
             wl.cached_nst_program = real
             os.chdir(cwd)
@@ -1300,6 +1319,207 @@ def phase_demos(card: str):
              f"{s_hist[0].item():.6g} -> {s_hist[-1].item():.6g}")
     return gram_launches
 
+# the real-data phase's fake trees at 400x640: OpenEDS2019 users per split
+# (about 20 frames each: some 64 test frames, some 256 training crops) and
+# OpenEDS2020 sequences of 64 frames per split (384 training frames: three
+# estimator-2 steps at bs 128; one validation batch of 128)
+TREE_2019_USERS, TREE_2019_FRAMES = (6, 5, 5), 20
+TREE_2020_SEQUENCES, TREE_2020_FRAMES = (6, 2, 1), 64
+FRAME_H, FRAME_W = 400, 640
+REAL_BS_2019, REAL_BS_2020 = 64, 128
+DECODE_FRAMES = 128  # per filter type, for the decode rates (at most the 2020 tree's validation frames)
+LOADER_THREADS = 8  # decode_gray_batch's default
+
+
+def _decode_rates(tmp: str, frames) -> dict:
+    """decode_gray_batch's frames/s on DECODE_FRAMES frames written with
+    each filter type, on one thread and on the loader's threads, each timed
+    twice in turns (the faster kept)."""
+    import numpy as np
+    from iris_style_transfer_tpu_torch.data import decode_gray_batch
+    from iris_style_transfer_tpu_torch.utils.png import FILTER_TYPES, write_png
+
+    rates = {}
+    for ft in FILTER_TYPES:
+        d = os.path.join(tmp, f"decode_{ft}")
+        os.makedirs(d)
+        paths = [os.path.join(d, f"{i:03d}.png") for i in range(DECODE_FRAMES)]
+        with ThreadPoolExecutor(max_workers=LOADER_THREADS) as pool:
+            list(pool.map(lambda i: write_png(paths[i], frames[i], ft), range(DECODE_FRAMES)))
+        decoded = decode_gray_batch(paths, FRAME_H, FRAME_W, threads=LOADER_THREADS, dtype=np.uint8)
+        if not (decoded[..., 0] == frames[:DECODE_FRAMES]).all():
+            raise AssertionError(f"decode_gray_batch does not give back the frames written with filter {ft}")
+        mb = sum(os.path.getsize(p) for p in paths) / DECODE_FRAMES / 1e6
+        for threads in (1, LOADER_THREADS, LOADER_THREADS, 1):  # in turns; the faster of two
+            t0 = time.perf_counter()
+            decode_gray_batch(paths, FRAME_H, FRAME_W, threads=threads, dtype=decoded.dtype)
+            rate = DECODE_FRAMES / (time.perf_counter() - t0)
+            rates[(ft, threads)] = max(rate, rates.get((ft, threads), 0.0))
+        _log("real_data", f"decode {FRAME_H}x{FRAME_W} gray PNG, filter {ft} ({mb:.3f} MB a file): "
+             f"{rates[(ft, 1)]:.1f} frames/s on 1 thread, {rates[(ft, LOADER_THREADS)]:.1f} on "
+             f"{LOADER_THREADS} threads ({os.cpu_count()} host cores)")
+    return rates
+
+
+def phase_real_data(card: str) -> dict:
+    """The four mains from fake OpenEDS2019 and OpenEDS2020 trees on disk
+    (``data/fake_openeds.py``, 400x640, every row filter): the 2019 IST
+    main and the classifier trainer (bs 64), the 2020 IST main (bs 128;
+    its prediction files bit-equal to those of the same frames fed from
+    memory in the stream's order), the gaze trainer with estimator 1 (B7
+    landmark extraction) and estimator 2 (bs 128, streamed); launch counts
+    as the twin phases'; decode rates per filter type."""
+    import random
+
+    import numpy as np
+    import torch
+    from iris_style_transfer_tpu_torch.data import (batch_iterator, fake_openeds, load_data_openeds2019,
+                                                    load_labels_openeds2020, synthetic_eye_batch)
+    from iris_style_transfer_tpu_torch.ops import conv1 as c1
+    from iris_style_transfer_tpu_torch.ops import depthwise as dw
+    from iris_style_transfer_tpu_torch.ops import relu_pool as rp
+    from iris_style_transfer_tpu_torch.ops import relu_stats as rs
+    from iris_style_transfer_tpu_torch.workloads import gaze_estimation as gz
+    from iris_style_transfer_tpu_torch.workloads import iris_classification as ic
+    from iris_style_transfer_tpu_torch.workloads import ist_openeds2019 as ist19
+    from iris_style_transfer_tpu_torch.workloads import ist_openeds2020 as ist20
+
+    t_phase = time.perf_counter()
+    out = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        tree19 = fake_openeds.write_openeds2019(data, TREE_2019_USERS, TREE_2019_FRAMES, FRAME_H, FRAME_W, SEED)
+        tree20 = fake_openeds.write_openeds2020(data, TREE_2020_SEQUENCES, TREE_2020_FRAMES, FRAME_H, FRAME_W, SEED)
+        n_files = sum(name.endswith(".png") for _, _, names in os.walk(data) for name in names)
+        _log("real_data", f"fake trees: {n_files} PNGs at {FRAME_H}x{FRAME_W} written in "
+             f"{time.perf_counter() - t0:.1f} s")
+        # the validation frames the tree was written from (write_openeds2020's seed + 1)
+        n_val = TREE_2020_SEQUENCES[1] * TREE_2020_FRAMES
+        val_frames = np.round(np.clip(synthetic_eye_batch(n_val, FRAME_H, FRAME_W, seed=SEED + 1, gaze=True)[0], 0, 1)
+                              * 255).astype(np.uint8)
+        out["decode"] = _decode_rates(tmp, val_frames[..., 0])
+
+        # the 2019 IST main: the test part of every user's frames
+        argv = ["-bs", str(REAL_BS_2019), "--nst_epochs", str(MAIN_CLOSURES)]
+        results, launches, calls, wall = _run_main(ist19, argv, (rp.LAUNCHES, rs.LAUNCHES, c1.LAUNCHES), data)
+        log = results[("test/", 1.0, MAIN_CLOSURES)]
+        for k in ("test/post/mean_miou", "test/pre/c1/accu", "test/post/c2/accu", "test/pipeline_images_per_min"):
+            if k not in log or not math.isfinite(log[k]):
+                raise AssertionError(f"ist_openeds2019 on the 2019 tree: {k} missing or not finite")
+        _check_launches("the 2019 main on the 2019 tree", launches, calls, False, calls * (MAIN_CLOSURES + 4))
+        _log("real_data", f"ist_openeds2019 on the 2019 tree, bs {REAL_BS_2019}, {MAIN_CLOSURES} closures on {card}: "
+             f"{calls} batch(es); post mean_miou {log['test/post/mean_miou']:.4f}, pipeline_images_per_min "
+             f"{log['test/pipeline_images_per_min']:.1f}; launches {launches}; main {wall:.1f} s")
+
+        # the classifier trainer: split sizes from the loader under the main's seed
+        random.seed(42)
+        _, train_y, _, _, test_y, _, _ = load_data_openeds2019(load_seg=False, data_dir=tree19)
+        steps, test_batches = len(train_y) // REAL_BS_2019, -(-len(test_y) // REAL_BS_2019)
+        os.chdir(tmp)
+        try:
+            log, launches, wall, peak = _train_run(ic.main, ["-bs", str(REAL_BS_2019), "-E", "1", "-SP", "-1",
+                                                             "--data_dir", data],
+                                                   (c1.LAUNCHES, rp.LAUNCHES, rs.LAUNCHES))
+        finally:
+            os.chdir(cwd)
+        want = {"conv1": steps + test_batches, "relu_pool_fwd": steps + test_batches, "relu_pool_bwd": 0,
+                "relu_stats_fwd": 0, "relu_stats_bwd": 0}
+        if launches != want or steps == 0:
+            raise AssertionError(f"iris_classification on the 2019 tree launched {launches}; {want} expected")
+        for k in ("train/c1/accu", "test/c2/accu", "train/steps_per_sec"):
+            if k not in log or not math.isfinite(log[k]):
+                raise AssertionError(f"iris_classification on the 2019 tree: {k} missing or not finite")
+        _log("real_data", f"iris_classification on the 2019 tree, bs {REAL_BS_2019}, 1 epoch of {steps} steps "
+             f"({len(train_y)} crops) + {test_batches} test batch(es) on {card}: "
+             f"{log['train/steps_per_sec']:.3f} steps/s; launches {launches}; peak {peak:.2f} GB; main {wall:.1f} s")
+
+        # the 2020 IST main from disk, then the same frames from memory;
+        # cuDNN's deterministic algorithms in both, so that equal inputs give equal bits
+        bs, chunk = REAL_BS_2020, ist20.SEG_CHUNK
+        labels = load_labels_openeds2020(tree20, "validation/")
+        preds, real_stream = {}, ist20.stream_openeds2020
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for run in ("disk", "memory"):
+                if run == "memory":
+                    ist20.stream_openeds2020 = lambda path, postfix, b: batch_iterator((val_frames, labels), b,
+                                                                                       pad_final=True)
+                preds[run] = {}
+                try:
+                    results, launches, calls, wall = _run_main(
+                        ist20, ["-bs", str(bs), "--nst_epochs", str(MAIN_CLOSURES)],
+                        (rp.LAUNCHES, dw.LAUNCHES, rs.LAUNCHES, c1.LAUNCHES), data, preds[run])
+                finally:
+                    ist20.stream_openeds2020 = real_stream
+                if run == "disk":
+                    log = results[("validation/", 1.0, MAIN_CLOSURES)]
+                    keys = [f"validation//{p}/degree_distance{i}" for p in ("pre", "post") for i in (1, 2)]
+                    for k in keys + ["validation//pipeline_images_per_min"]:
+                        if k not in log or not math.isfinite(log[k]):
+                            raise AssertionError(f"ist_openeds2020 on the 2020 tree: {k} missing or not finite")
+                    _check_launches("the 2020 main on the 2020 tree", launches, calls, False,
+                                    calls * (MAIN_CLOSURES + 2))
+                    want_dw = 102 * (1 + 2 * calls * -(-bs // chunk))
+                    if launches["dw_conv_bn_silu"] != want_dw:
+                        raise AssertionError(f"the 2020 main on the 2020 tree launched dw_conv_bn_silu "
+                                             f"{launches['dw_conv_bn_silu']} times; {want_dw} expected")
+                    _log("real_data", f"ist_openeds2020 on the 2020 tree, bs {bs}, {MAIN_CLOSURES} closures, "
+                         f"cuDNN deterministic, on {card}: {calls} batch(es) of {n_val} frames; degree_distance "
+                         f"pre {log[keys[0]]:.2f}/{log[keys[1]]:.2f}, post {log[keys[2]]:.2f}/{log[keys[3]]:.2f}; "
+                         f"pipeline_images_per_min {log['validation//pipeline_images_per_min']:.1f}; launches "
+                         f"{launches}; main {wall:.1f} s")
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        names = [f"preds{i}_{p}.npy" for p in ("pre", "post") for i in (1, 2)] + ["labels.npy", "gts.npy"]
+        for n in names:
+            a, b = preds["disk"].get(n), preds["memory"].get(n)
+            if a is None or b is None or a.shape != b.shape or a.tobytes() != b.tobytes():
+                raise AssertionError(f"ist_openeds2020: {n} from disk differs from the in-memory run's")
+        if len(preds["disk"]["preds1_pre.npy"]) != n_val:
+            raise AssertionError(f"ist_openeds2020 predicted {len(preds['disk']['preds1_pre.npy'])} frames, "
+                                 f"not {n_val}")
+        _log("real_data", f"ist_openeds2020: {', '.join(names)} from disk bit-equal to the in-memory run's "
+             f"({n_val} frames in the stream's order)")
+
+        # the gaze trainer: estimator 1 on B7 landmarks, estimator 2 streamed at bs 128
+        n_train = TREE_2020_SEQUENCES[0] * TREE_2020_FRAMES
+        for est in ("1", "2"):
+            torch.cuda.empty_cache()
+            os.chdir(tmp)
+            try:
+                log, launches, wall, peak = _train_run(
+                    gz.main, ["-estimator", est, "-bs", str(bs), "-E", "1", "-SP", "-1", "--data_dir", data],
+                    (c1.LAUNCHES, dw.LAUNCHES))
+            finally:
+                os.chdir(cwd)
+            for k in ("train/loss", "train/degree_distance", "valid/degree_distance", "train/steps_per_sec"):
+                if k not in log or not math.isfinite(log[k]):
+                    raise AssertionError(f"gaze_estimation -estimator {est} on the 2020 tree: {k} missing or "
+                                         "not finite")
+            b7_applies = -(-n_train // chunk) + -(-n_val // chunk)  # the loader's chunks of 32
+            want = {"conv1": 0, "dw_conv_bn_silu": 102 * b7_applies if est == "1" else 0}
+            if launches != want:
+                raise AssertionError(f"gaze_estimation -estimator {est} on the 2020 tree launched {launches}; "
+                                     f"{want} expected")
+            fps = log["train/steps_per_sec"] * bs
+            out[f"estimator{est}"] = {"frames_per_sec": fps, "peak_gb": peak, "wall_s": wall}
+            _log("real_data", f"gaze_estimation -estimator {est} -bs {bs} on the 2020 tree ({n_train} training frames"
+                 f"{', streamed' if est == '2' else ', B7 landmarks'}) on {card}: {log['train/steps_per_sec']:.3f} "
+                 f"train steps/s of the last lr = {fps:.1f} frames/s; valid/degree_distance "
+                 f"{log['valid/degree_distance']:.2f}; launches {launches}; peak {peak:.2f} GB; main {wall:.1f} s")
+    trainer = out["estimator2"]["frames_per_sec"]
+    for ft in sorted({ft for ft, _ in out["decode"]}, key=str):
+        threaded = out["decode"][(ft, LOADER_THREADS)]
+        _log("real_data", f"decode vs the estimator-2 trainer (bs {REAL_BS_2020}, {trainer:.1f} frames/s) on {card} "
+             f"with {os.cpu_count()} host cores: filter {ft}: {threaded:.1f} frames/s on {LOADER_THREADS} threads = "
+             f"{threaded / trainer:.2f}x, {out['decode'][(ft, 1)]:.1f} on 1 thread = "
+             f"{out['decode'][(ft, 1)] / trainer:.2f}x")
+    _log("real_data", f"phase took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -1326,6 +1546,7 @@ def main() -> int:
     gram_launches = phase_demos(card)
     train = phase_train2019(card)
     phase_train_gaze(card)
+    phase_real_data(card)
     src = "iris_style_transfer_tpu_torch/ops/csrc/"
     stats_fwd = launches_st["relu_stats_fwd"] + launches2020_st["relu_stats_fwd"]
     stats_bwd = launches_st["relu_stats_bwd"] + launches2020_st["relu_stats_bwd"]

@@ -1,6 +1,15 @@
-"""OpenEDS2019 dataset construction on the device.
+"""OpenEDS2019 loading and dataset construction on the device.
 
 Counterpart of ``iris_style_transfer_tpu/data/openeds2019.py``:
+  * ``load_data_openeds2019`` (reference ``data_preprocessing.py:253-347``):
+    the three splits' image folders and user-to-image JSON mappings (the
+    dataset's own ``semantic_segmenation_images`` key), users with at most
+    two images skipped, each user's images split by ``random.sample``
+    with ``random_split``'s sizes, one class per user counted across the
+    splits, frames decoded to uint8 gray (``data/native_loader.py``), the
+    optional ``.npy`` segmentation labels.  It draws from the host
+    ``random`` module in the JAX function's call order, so a seed gives
+    the same split in both packages, and the same later donors.
   * ``build_ist_dataset``, ``ISTDataset``, ``sample_other`` (reference
     ``data_preprocessing.py:110-251``): per content frame, RITnet
     segmentation, pre-NST IoUs against the ground truth, the iris mask and
@@ -13,13 +22,13 @@ Counterpart of ``iris_style_transfer_tpu/data/openeds2019.py``:
     perspective (``_augment_one``), and u16 quantization.  The random
     draws come from a ``torch.Generator``, so their stream is not
     ``jax.random``'s.
-
-Loading the real OpenEDS data from disk is not ported yet (ROADMAP); the
-workload runs on the synthetic twin.
 """
 
 from __future__ import annotations
 
+import json
+import math
+import os
 import random
 from dataclasses import dataclass
 
@@ -43,6 +52,70 @@ from ..ops.image import (
 )
 from ..ops.metrics import iou_per_class
 from ..pipelines.iris import iris_mask_from_seg
+from ..utils.png import png_size
+from .native_loader import decode_gray_batch
+
+MAPPING_KEY = "semantic_segmenation_images"  # the dataset's own spelling (reference :308)
+SPLITS = ("train", "validation", "test")
+
+
+def _test_split_size(n: int, test_ratio: float) -> int:
+    """A user's test-set size with ``torch.utils.data.random_split``'s
+    fractional sizes (reference ``:312``): each fraction floored, the
+    remainder handed out round-robin starting with the train part, so 9
+    images at 0.2 give 1 test image."""
+    lengths = [math.floor(n * (1.0 - test_ratio)), math.floor(n * test_ratio)]
+    for i in range(n - sum(lengths)):
+        lengths[i % 2] += 1
+    return lengths[1]
+
+
+def load_data_openeds2019(
+    test_split_ratio: float = 0.2,
+    load_seg: bool = False,
+    data_dir: str = "../data/openeds2019",
+    image_paths: list[str] | None = None,
+    json_paths: list[str] | None = None,
+    seg_paths: list[str] | None = None,
+):
+    """(train_x, train_y, train_m, test_x, test_y, test_m, class_count):
+    frames as (H, W, 1) uint8 arrays, user classes as ints, and the (H, W)
+    segmentation labels with ``load_seg`` (else None)."""
+    if image_paths is None:
+        base = os.path.join(data_dir, "Semantic_Segmentation_Dataset")
+        image_paths = [os.path.join(base, s, "images") for s in SPLITS]
+        seg_paths = [os.path.join(base, s, "labels") for s in SPLITS]
+        json_paths = [os.path.join(data_dir, f"OpenEDS_{s}_userID_mapping_to_images.json") for s in SPLITS]
+
+    train_x, train_y, train_m = [], [], []
+    test_x, test_y, test_m = [], [], []
+    class_count = 0
+    for i_folder, j_path, m_folder in zip(image_paths, json_paths, seg_paths):
+        with open(j_path) as fh:
+            mappings = json.load(fh)
+        img_class, img_train = {}, {}
+        for m in mappings:
+            imgs = m[MAPPING_KEY]
+            if len(imgs) <= 2:  # too few images (reference :309)
+                continue
+            test_idx = set(random.sample(range(len(imgs)), _test_split_size(len(imgs), test_split_ratio)))
+            for i, name in enumerate(imgs):
+                img_class[name] = class_count
+                img_train[name] = i not in test_idx
+            class_count += 1
+
+        names = [p for p in os.listdir(i_folder) if p in img_class]
+        if not names:
+            continue
+        paths = [os.path.join(i_folder, p) for p in names]
+        h, w = png_size(paths[0])
+        for name, arr in zip(names, decode_gray_batch(paths, h, w, dtype=np.uint8)):
+            seg = np.load(os.path.join(m_folder, name[:-4] + ".npy")) if load_seg else None
+            xs, ys, ms = (train_x, train_y, train_m) if img_train[name] else (test_x, test_y, test_m)
+            xs.append(arr)
+            ys.append(img_class[name])
+            ms.append(seg)
+    return train_x, train_y, train_m, test_x, test_y, test_m, class_count
 
 
 def sample_other(label: int, labels: list[int]) -> int:

@@ -7,6 +7,8 @@ own device, so a device-resident dataset is batched without a host round
 trip.  :func:`prefetch_to_device` replaces the reference's
 ``DataLoader(pin_memory=True)``: a thread pins each host batch and copies it
 to the device on a side stream while the current step runs.
+:func:`background` runs any host iterator (the loaders' frame decode) on a
+thread, ahead of the device work that consumes it.
 """
 
 from __future__ import annotations
@@ -95,6 +97,12 @@ def _background(iterator, size: int, transform):
             yield item
     finally:
         stop.set()
+
+
+def background(iterator, size: int = 2):
+    """Run a host iterator on a thread with a bounded queue of ``size``
+    items, so that decode overlaps the consumer's device work."""
+    return _background(iterator, size, lambda item: item)
 
 
 def prefetch_to_device(iterator, device, size: int = 2) -> Iterator[tuple]:

@@ -1,13 +1,18 @@
-"""Build and load the hand-written CUDA kernels (``ops/csrc/*.cu``).
+"""Build and load the port's native code: the hand-written CUDA kernels
+(``ops/csrc/*.cu``) and the host C++ of the frame decoder
+(``data/csrc/*.cpp``).
 
-Each source is compiled on first use with ``nvcc -shared -Xcompiler -fPIC``
-for ``sm_90a`` into ``iris_style_transfer_tpu_torch/_build/`` (listed in
-``.gitignore``) and loaded with :mod:`ctypes`.  The library name carries a
-hash of the source and the flags, so an edited kernel is rebuilt and a
-stale library is never loaded.  An ``fcntl`` lock per source serializes
-concurrent builders of one library; different sources build in parallel.  A failed build raises with nvcc's stderr; nothing falls back.
-The sources expose plain C entry points, so no PyTorch header is compiled
-and a build takes seconds.
+A kernel source is compiled on first use with ``nvcc -shared -Xcompiler
+-fPIC`` for ``sm_90a``; a host source with the system's C++ compiler
+(``c++ -O3 -shared -fPIC``), which nvcc needs on a CUDA machine anyway.
+Both go into ``iris_style_transfer_tpu_torch/_build/`` (listed in
+``.gitignore``) and are loaded with :mod:`ctypes`.  The library name
+carries a hash of the source and the flags, so an edited source is rebuilt
+and a stale library is never loaded.  An ``fcntl`` lock per source
+serializes concurrent builds of one library; different sources build in
+parallel.  A failed build raises with the compiler's stderr; nothing falls
+back.  The sources expose plain C entry points, so no PyTorch header is
+compiled and a build takes seconds.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ NVCC_FLAGS = (
     "-fPIC",
     "-Xptxas=-v",
 )
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 # per-source build record: {"seconds": float, "log": str, "path": str};
@@ -46,14 +52,22 @@ def _nvcc() -> str:
     return path
 
 
-def load_library(source: str) -> ctypes.CDLL:
-    """Build (once) and load ``ops/csrc/<source>``; returns the CDLL."""
-    if source in _LOADED:
-        return _LOADED[source]
-    src = os.path.join(CSRC_DIR, source)
+def _host_cxx() -> str:
+    path = shutil.which("c++") or shutil.which("g++")
+    if path is None:
+        raise RuntimeError("no C++ compiler (c++ or g++) on the PATH: the frame decoder's helper needs one to build")
+    return path
+
+
+def _build_and_load(key: str, src: str, compiler, flags: tuple[str, ...]) -> ctypes.CDLL:
+    """Build ``src`` with ``compiler()`` and ``flags`` into ``_build/``
+    unless a library of the same source and flags is there; load it once
+    per process under ``key``."""
+    if key in _LOADED:
+        return _LOADED[key]
     with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    stem = os.path.splitext(source)[0]
+        digest = hashlib.sha256(fh.read() + " ".join(flags).encode()).hexdigest()[:16]
+    stem = os.path.splitext(os.path.basename(src))[0]
     so = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
     os.makedirs(BUILD_DIR, exist_ok=True)
     info = {"seconds": 0.0, "log": "", "path": so}
@@ -64,14 +78,24 @@ def load_library(source: str) -> ctypes.CDLL:
                 tmp = f"{so}.{os.getpid()}.tmp"
                 t0 = time.perf_counter()
                 proc = subprocess.run(
-                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                    [compiler(), *flags, "-o", tmp, src],
                     capture_output=True, text=True, check=False,
                 )
                 if proc.returncode != 0:
-                    raise RuntimeError(f"nvcc failed to build {source}:\n{proc.stderr}")
+                    raise RuntimeError(f"{os.path.basename(compiler())} failed to build {key}:\n{proc.stderr}")
                 os.replace(tmp, so)
                 info = {"seconds": time.perf_counter() - t0, "log": proc.stderr, "path": so}
     lib = ctypes.CDLL(so)
-    BUILD_INFO[source] = info
-    _LOADED[source] = lib
+    BUILD_INFO[key] = info
+    _LOADED[key] = lib
     return lib
+
+
+def load_library(source: str) -> ctypes.CDLL:
+    """Build (once) and load the CUDA kernels of ``ops/csrc/<source>``."""
+    return _build_and_load(source, os.path.join(CSRC_DIR, source), _nvcc, NVCC_FLAGS)
+
+
+def load_host_library(path: str) -> ctypes.CDLL:
+    """Build (once) and load the host C++ source at ``path``."""
+    return _build_and_load(os.path.relpath(path, _PKG_DIR), path, _host_cxx, HOST_FLAGS)

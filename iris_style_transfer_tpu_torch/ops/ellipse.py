@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 _NO_LARGEST = ("select_largest=True needs the connected-component labelling of "
-               "ops/connected.py, not ported yet (ROADMAP queue 1, item 8)")
+               "ops/connected.py, not ported yet (ROADMAP queue 1, item 7)")
 
 
 def fit_ellipse_mask(mask: torch.Tensor, select_largest: bool = False, min_pixels: int = 5) -> torch.Tensor:

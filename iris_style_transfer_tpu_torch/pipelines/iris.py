@@ -6,8 +6,8 @@ Counterpart of ``iris_style_transfer_tpu/pipelines/iris.py`` (reference
 masked frame, resize, grayscale -> RGB; and the inverse paste back into
 the frame.  Frames and masks are channel-last (B, H, W, 1); the NST takes
 and returns NCHW images.  ``area_opening`` stays off, as it is by default
-in the JAX package; asking for it raises (``ops/connected.py`` is not
-ported).
+in the JAX package; asking for it raises (``ops/connected.py`` is the
+next module to port: ROADMAP queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ def mask_and_crop_iris(
     if use_area_opening:
         raise NotImplementedError(
             f"area opening (area {area_threshold}, connectivity {connectivity}) needs "
-            "ops/connected.py, which is not ported yet (ROADMAP)")
+            "ops/connected.py, which is not ported yet (ROADMAP queue 1, item 7)")
     seg = RITnet.apply(ritnet_params, x)
     return extract_iris_batch(x, seg, glint_threshold, out_size=out_size, rgb=True)
 

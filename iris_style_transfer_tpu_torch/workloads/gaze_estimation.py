@@ -10,10 +10,16 @@ with ``--test``, ``test/``) loss and angular distances; per-lr checkpoints
 under the JAX package's directory names, with ``--resume``.  Flags are the
 JAX workload's, plus ``--device``.
 
-Without ``--data_dir/openeds2020/openEDS2020-GazePrediction`` the run uses
-the synthetic gaze twin: 96 training frames and 32 validation (and test)
-frames.  Every step drops the last short batch, so a batch size above 96
-gives no training step there and the run stops with an error.
+With ``--data_dir/openeds2020/openEDS2020-GazePrediction`` present the run
+reads that OpenEDS2020 tree (``data/openeds2020.py``).  Estimator 1's
+landmarks are extracted once per split, eagerly, by the B7 U-Net
+(``--effnet_weights``, or the seeded init) on the device.  Estimator 2's
+raw frames are streamed anew every epoch, in bounded memory: training
+reshuffles with ``shuffle_seed = seed + epoch`` and drops the last short
+batch; evaluation pads it and masks the padded rows out.  Without the tree
+the run uses the synthetic gaze twin: 96 training frames and 32 validation
+(and test) frames.  Every step drops the last short batch, so a batch size
+above the training frames gives no step and the run stops with an error.
 """
 
 from __future__ import annotations
@@ -25,8 +31,15 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
-from ..data import batch_iterator, prefetch_to_device, synthetic_eye_batch
-from ..models import GazeEstimator1, GazeEstimator2, load_pretrained, pretrained_path
+from ..data import (
+    batch_iterator,
+    load_data_openeds2020,
+    load_labels_openeds2020,
+    prefetch_to_device,
+    stream_openeds2020,
+    synthetic_eye_batch,
+)
+from ..models import EfficientNet, GazeEstimator1, GazeEstimator2, load_pretrained, pretrained_path
 from ..ops.ellipse import extract_eye_landmarks
 from ..ops.image import to_unit_float
 from ..ops.metrics import angular_distance, cosine_embedding_loss
@@ -87,25 +100,51 @@ def _epoch_metrics(preds: torch.Tensor, labels: torch.Tensor, prefix: str, log: 
     log[f"{prefix}/degree_distance"] = float(deg.mean())
 
 
-def gaze_estimation(cfg: WorkloadConfig, device: torch.device, lrs=LRS, resnet_weights: str = "") -> dict:
+def gaze_estimation(cfg: WorkloadConfig, device: torch.device, lrs=LRS, effnet_weights: str = "",
+                    resnet_weights: str = "") -> dict:
     seed_all(cfg.seed)
     base = os.path.join(cfg.data_dir, "openeds2020", "openEDS2020-GazePrediction")
-    if os.path.isdir(base):
-        raise SystemExit(f"{base} exists, but streaming the real OpenEDS2020 frames is not ported "
-                         "yet (ROADMAP item 13); run without it for the synthetic twin")
-    print(f"[data] {base} not found -> synthetic gaze twin")
-    if N_TRAIN < cfg.bs:
-        raise SystemExit(f"the twin's {N_TRAIN} training frames give no step at -bs {cfg.bs} "
-                         "(the last short batch is dropped); use -bs 96 or less")
+    use_real = os.path.isdir(base)
+    if not use_real:
+        print(f"[data] {base} not found -> synthetic gaze twin")
+    n_train = len(load_labels_openeds2020(base + "/", "train/")) if use_real else N_TRAIN
+    if n_train < cfg.bs:
+        raise SystemExit(f"{n_train} training frames give no step at -bs {cfg.bs} (the last short batch is "
+                         f"dropped); use -bs {n_train} or less")
+    compute_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     resnet_pre = None
     if cfg.estimator == 2 and (resnet_weights or pretrained_path("resnet50")):
         resnet_pre = load_pretrained("resnet50", resnet_weights, None, device)
-    compute_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    eff = None
+    if use_real and cfg.estimator == 1:  # loaded once, for every split
+        eff = load_pretrained("efficientnet_unet", effnet_weights,
+                              lambda: EfficientNet.init(torch.Generator().manual_seed(0), device), device)
 
-    train = _synthetic_gaze(N_TRAIN, cfg.estimator, seed=cfg.seed, device=device)
-    valid = _synthetic_gaze(N_EVAL, cfg.estimator, seed=cfg.seed, device=device)
-    splits = [("valid", valid)] + ([("test", _synthetic_gaze(N_EVAL, cfg.estimator, seed=cfg.seed,
-                                                             device=device))] if cfg.test else [])
+    def load(postfix: str):
+        """A split as (features, gaze) arrays, or as its postfix when its
+        raw frames are streamed (estimator 2 on the real tree)."""
+        if use_real and cfg.estimator == 2:
+            return postfix
+        if use_real:
+            return load_data_openeds2020(True, 1, base + "/", postfix, efficientnet_params=eff,
+                                         compute_dtype=compute_dtype, device=device)
+        return _synthetic_gaze(N_TRAIN if postfix == "train/" else N_EVAL, cfg.estimator, seed=cfg.seed,
+                               device=device)
+
+    def train_batches(split, epoch: int):
+        if isinstance(split, str):
+            return stream_openeds2020(base + "/", split, cfg.bs, shuffle_seed=cfg.seed + epoch, drop_remainder=True)
+        return batch_iterator(split, cfg.bs, shuffle=True, seed=cfg.seed + epoch, drop_remainder=True)
+
+    def eval_batches(split):
+        if isinstance(split, str):
+            return stream_openeds2020(base + "/", split, cfg.bs)
+        return batch_iterator(split, cfg.bs)
+
+    print("loading training set...")
+    train = load("train/")
+    print("loading validation set...")
+    splits = [("valid", load("validation/"))] + ([("test", load("test/"))] if cfg.test else [])
     train_step, eval_step = make_steps(cfg.estimator, compute_dtype)
 
     final: dict = {}
@@ -131,8 +170,8 @@ def gaze_estimation(cfg: WorkloadConfig, device: torch.device, lrs=LRS, resnet_w
         for e in range(start_epoch, cfg.epochs):
             log: dict = {}
             preds, labels = [], []
-            it = batch_iterator(train, cfg.bs, shuffle=True, seed=cfg.seed + e, drop_remainder=True)
-            for bi, (x, y) in enumerate(prefetch_to_device(it, device)):
+            for bi, batch in enumerate(prefetch_to_device(train_batches(train, e), device)):
+                x, y = batch[0], batch[1]
                 drop_gen.manual_seed(cfg.seed * 1_000_000_000 + e * 100_000 + bi)
                 with timer:
                     _, o = train_step(params, opt, x, y, drop_gen)
@@ -141,11 +180,15 @@ def gaze_estimation(cfg: WorkloadConfig, device: torch.device, lrs=LRS, resnet_w
                 labels.append(y)
             _epoch_metrics(torch.cat(preds), torch.cat(labels), "train", log)
 
-            for split_name, (feats, gaze) in splits:
-                preds = [eval_step(params, batch[0])
-                         for batch in prefetch_to_device(batch_iterator((feats, gaze), cfg.bs), device)]
-                # the padded rows of the last batch come last
-                _epoch_metrics(torch.cat(preds)[: len(gaze)], torch.from_numpy(gaze), split_name, log)
+            for split_name, split in splits:
+                preds, labels = [], []
+                for batch in prefetch_to_device(eval_batches(split), device):
+                    o, y = eval_step(params, batch[0]), batch[1]
+                    if len(batch) > 2:  # the last batch's padded rows are masked out
+                        o, y = o[batch[2]], y[batch[2]]
+                    preds.append(o)
+                    labels.append(y)
+                _epoch_metrics(torch.cat(preds), torch.cat(labels), split_name, log)
 
             log["train/steps_per_sec"] = timer.per_sec()
             logger.log(log)
@@ -160,6 +203,8 @@ def main(argv: list[str] | None = None):
     parser = argparse.ArgumentParser()
     defaults = WorkloadConfig(project="iris-style-transfer", epochs=150, bs=128, save_period=10)
     add_common_args(parser, defaults)
+    parser.add_argument("--effnet_weights", type=str, default="",
+                        help="ported smp Unet(efficientnet-b7) npz for estimator 1's landmark extraction")
     parser.add_argument("--resnet_weights", type=str, default="",
                         help="ported ResNet50 IMAGENET1K_V2 npz for GazeEstimator2's backbone")
     parser.add_argument("--device", type=str, default="cuda",
@@ -171,7 +216,7 @@ def main(argv: list[str] | None = None):
     if cfg.model_parallel > 1:
         raise SystemExit("--model_parallel > 1 needs a multi-device mesh, which the torch "
                          "port does not have yet (ROADMAP: multi-device data parallelism)")
-    return gaze_estimation(cfg, device, resnet_weights=args.resnet_weights)
+    return gaze_estimation(cfg, device, effnet_weights=args.effnet_weights, resnet_weights=args.resnet_weights)
 
 
 if __name__ == "__main__":

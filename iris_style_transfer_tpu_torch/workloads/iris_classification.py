@@ -14,8 +14,10 @@ IST mains' ``-path1/-path2``) beside the full training state for
 The crops are built once per split on the device (``build_ir_dataset``)
 and staged back per batch from pinned host memory on a side stream.  With
 a frozen VGG19 its forward runs under ``torch.no_grad()``.  Logits stay on
-the device and are fetched once per epoch.  Without
-``--data_dir/openeds2019`` the run uses the synthetic twin.
+the device and are fetched once per epoch.  With ``--data_dir/openeds2019``
+present the run reads that OpenEDS2019 tree (frames only,
+``data/openeds2019.py:load_data_openeds2019``); without it, the synthetic
+twin.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import os
 import torch
 import torch.utils._pytree as pytree
 
-from ..data import batch_iterator, build_ir_dataset, prefetch_to_device, synthetic_openeds2019
+from ..data import batch_iterator, build_ir_dataset, load_data_openeds2019, prefetch_to_device, synthetic_openeds2019
 from ..models import Classifier1, Classifier2, RITnet, VGG19, load_pretrained
 from ..ops.image import gray_to_rgb, to_unit_float
 from ..ops.metrics import classification_metrics, cross_entropy
@@ -85,8 +87,7 @@ def make_steps(compute_dtype):
 def _load_data(cfg: WorkloadConfig):
     base = os.path.join(cfg.data_dir, "openeds2019")
     if os.path.isdir(base):
-        raise SystemExit(f"{base} exists, but loading the real OpenEDS2019 data is not ported "
-                         "yet (ROADMAP: the real-data loader); run without it for the synthetic twin")
+        return load_data_openeds2019(cfg.test_split_ratio, load_seg=False, data_dir=base)
     print(f"[data] {base} not found -> synthetic dataset")
     return synthetic_openeds2019(n_per_user=8, num_users=8, seed=cfg.seed)
 

@@ -12,8 +12,10 @@ and metric namespaces are the JAX workload's, plus ``--device``.
 
 Host metric work (sklearn-equivalent metrics on the logits, the loss and
 IoU read-backs) runs on one worker thread, overlapped with the next
-batch's device work.  Without ``--data_dir/openeds2019`` the run uses the
-synthetic twin.
+batch's device work.  With ``--data_dir/openeds2019`` present the run
+reads that OpenEDS2019 tree, with its segmentation labels
+(``data/openeds2019.py:load_data_openeds2019``); without it, the synthetic
+twin.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from ..data import batch_iterator, build_ist_dataset, synthetic_openeds2019
+from ..data import batch_iterator, build_ist_dataset, load_data_openeds2019, synthetic_openeds2019
 from ..models import Classifier1, Classifier2, RITnet, VGG19, load_pretrained
 from ..ops.image import as_bool_mask, as_label_map, crop_and_resize, gray_to_rgb, to_unit_float
 from ..ops.metrics import classification_metrics, iou_per_class
@@ -279,10 +281,10 @@ def main(argv: list[str] | None = None):
     gen = seed_all(cfg.seed)
     base = os.path.join(cfg.data_dir, "openeds2019")
     if os.path.isdir(base):
-        raise SystemExit(f"{base} exists, but loading the real OpenEDS2019 data is not ported "
-                         "yet (ROADMAP: the real-data loader); run without it for the synthetic twin")
-    print(f"[data] {base} not found -> synthetic dataset")
-    data = synthetic_openeds2019(n_per_user=6, num_users=8, seed=cfg.seed)
+        data = load_data_openeds2019(cfg.test_split_ratio, load_seg=True, data_dir=base)
+    else:
+        print(f"[data] {base} not found -> synthetic dataset")
+        data = synthetic_openeds2019(n_per_user=6, num_users=8, seed=cfg.seed)
     train_x, train_y, train_m, test_x, test_y, test_m, num_class = data
     print("number of classes:", num_class)
 

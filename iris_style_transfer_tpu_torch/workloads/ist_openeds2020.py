@@ -16,9 +16,12 @@ its double slash), plus ``--device``.
 The full-resolution programs (B7 + both estimators at 400x640) run in
 chunks of :data:`SEG_CHUNK` frames under ``torch.no_grad()``.  Host metric
 work runs on one worker thread, overlapped with the next batch's device
-work, and is drained in batch order.  Without
-``--data_dir/openeds2020/openEDS2020-GazePrediction`` the run uses the
-synthetic twin with geometric gaze labels.
+work, and is drained in batch order.  With
+``--data_dir/openeds2020/openEDS2020-GazePrediction`` present the run reads
+that OpenEDS2020 tree: each split's labels eagerly, its frames streamed in
+order per sweep combination (``data/openeds2020.py:stream_openeds2020``),
+and the style iris from the frame ``test/sequences/2577/023.png``, as the
+JAX main does.  Without it, the synthetic twin with geometric gaze labels.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from ..data import batch_iterator, synthetic_eye_batch
+from ..data import batch_iterator, load_labels_openeds2020, stream_openeds2020, synthetic_eye_batch
 from ..models import EfficientNet, GazeEstimator1, GazeEstimator2, VGG19, load_pretrained, pretrained_path
 from ..ops.image import crop_and_resize, gray_to_rgb, nonzero_bbox, quantize_u8, to_unit_float
 from ..ops.metrics import angular_distance
@@ -39,7 +42,7 @@ from ..pipelines import composite_batch, extract_iris_batch
 from ..runtime import MetricLogger, StepTimer, restore_params
 from ..runtime.config import WorkloadConfig, add_common_args, parse_config, resolve_device
 from ..transfer.nst import cached_nst_program
-from ..utils import prepare_dir, save_png, seed as seed_all, sweep_done, write_sweep_marker
+from ..utils import prepare_dir, read_png_gray, save_png, seed as seed_all, sweep_done, write_sweep_marker
 from .ist_openeds2019 import _sync
 
 # frames per B7 + ResNet50 chunk at 400x640.  At 32 one bf16 B7 chunk
@@ -114,7 +117,7 @@ def _loss_job(metric_prefix, c_hist, s_hist, c_w, s_w):
 
 def iris_style_transfer_openeds2020(
     cfg: WorkloadConfig,
-    images: np.ndarray,
+    images,
     labels: np.ndarray,
     eff_params,
     g1_params,
@@ -132,7 +135,10 @@ def iris_style_transfer_openeds2020(
     programs=None,
 ) -> dict:
     """One sweep combo over ``images`` (N, H, W, 1) with unit gaze
-    ``labels`` (N, 3); ``s_iris`` is the (224, 224, 1) style iris."""
+    ``labels`` (N, 3), or over the batches of ``images()``, a zero-argument
+    factory of a (frames, labels, valid) stream such as
+    :func:`stream_openeds2020`'s; ``s_iris`` is the (224, 224, 1) style
+    iris."""
     compute_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     if programs is None:
         programs = make_programs(cfg.glint_threshold, compute_dtype, device)
@@ -149,8 +155,9 @@ def iris_style_transfer_openeds2020(
     pending: list[tuple[dict, list]] = []
     pipe_times: list[float] = []
 
+    batches = images() if callable(images) else batch_iterator((images, labels), cfg.bs, pad_final=True)
     try:
-        for batch_id, batch in enumerate(batch_iterator((images, labels), cfg.bs, pad_final=True)):
+        for batch_id, batch in enumerate(batches):
             t_batch = time.perf_counter()
             c_imgs, labs = batch[0], batch[1]
             valid = batch[2] if len(batch) > 2 else np.ones(len(labs), bool)
@@ -254,12 +261,6 @@ def main(argv: list[str] | None = None):
     if cfg.model_parallel > 1:
         raise SystemExit("--model_parallel > 1 needs a multi-device mesh, which the torch "
                          "port does not have yet (ROADMAP: multi-device data parallelism)")
-    base = os.path.join(cfg.data_dir, "openeds2020", "openEDS2020-GazePrediction")
-    if os.path.isdir(base):
-        raise SystemExit(f"{base} exists, but streaming the real OpenEDS2020 frames is not ported "
-                         "yet (ROADMAP: the real-data loader); run without it for the synthetic twin")
-    print(f"[data] {base} not found -> synthetic dataset")
-
     gen = seed_all(cfg.seed)
     vgg_params = load_pretrained("vgg19", args.vgg_weights, lambda: VGG19.init(gen, device), device)
     eff_params = load_pretrained("efficientnet_unet", args.effnet_weights,
@@ -274,8 +275,16 @@ def main(argv: list[str] | None = None):
         if args.resnet_weights or pretrained_path("resnet50"):
             g2_params["resnet"] = load_pretrained("resnet50", args.resnet_weights, None, device)
 
+    base = os.path.join(cfg.data_dir, "openeds2020", "openEDS2020-GazePrediction")
+    use_real = os.path.isdir(base)
+    if use_real:  # the reference's hand-picked style frame (:237-249)
+        s_img = read_png_gray(os.path.join(base, "test", "sequences", "2577", "023.png"))
+        s_img = s_img.astype(np.float32)[..., None] / 255.0
+    else:
+        print(f"[data] {base} not found -> synthetic dataset")
+        s_img = synthetic_eye_batch(1, seed=cfg.seed + 999)[0][0]
     compute_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
-    s_img = torch.from_numpy(synthetic_eye_batch(1, seed=cfg.seed + 999)[0][0]).to(device)
+    s_img = torch.from_numpy(s_img).to(device)
     s_iris = make_style_iris(eff_params, s_img, cfg.glint_threshold, compute_dtype)
 
     presentation = {"name", "project", "num_workers", "resume", "save_period"}
@@ -294,8 +303,14 @@ def main(argv: list[str] | None = None):
 
     for postfix in postfixes:
         print(f"loading {postfix[:-1]} set...")
-        # the twin's gaze is geometric (the iris offset inside the sclera)
-        images, _, _, labels = synthetic_eye_batch(24, seed=cfg.seed, gaze=True)
+        if use_real:
+            # labels eagerly (small files); frames streamed anew for each
+            # sweep combination: a split holds up to 550K frames
+            labels = load_labels_openeds2020(base + "/", postfix)
+            images = lambda p=postfix: stream_openeds2020(base + "/", p, cfg.bs)
+        else:
+            # the twin's gaze is geometric (the iris offset inside the sclera)
+            images, _, _, labels = synthetic_eye_batch(24, seed=cfg.seed, gaze=True)
         print(f"number of samples in {postfix} set:", len(labels))
         for sw in args.s_loss_weights:
             for nst_epoch in args.nst_epochs:

@@ -39,6 +39,7 @@ from iris_style_transfer_tpu_torch.ops import metrics as tmetrics
 from iris_style_transfer_tpu_torch.ops.image import unpack_mask_bits
 from iris_style_transfer_tpu_torch.pipelines import iris as tiris
 from iris_style_transfer_tpu_torch.transfer.nst import make_nst_fn
+from iris_style_transfer_tpu_torch.utils import read_png
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W = 48, 64  # divisible through RITnet's four 2x2 pools and CLAHE's 8x8 grid
@@ -176,9 +177,10 @@ def test_port_imports_no_jax():
         "from iris_style_transfer_tpu_torch.workloads import ist_openeds2019, ist_openeds2020\n"
         "from iris_style_transfer_tpu_torch.workloads import gaze_estimation, iris_classification\n"
         "from iris_style_transfer_tpu_torch.demos import iris_nst_demo, nst_demo\n"
+        "from iris_style_transfer_tpu_torch.data import fake_openeds, native_loader, openeds2020\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'iris_style_transfer_tpu.'))]\n"
         "assert not bad and 'iris_style_transfer_tpu' not in sys.modules, bad\n"
-        "imaging = [m for m in sys.modules if m.split('.')[0] in ('PIL', 'cv2')]\n"
+        "imaging = [m for m in sys.modules if m.split('.')[0] in ('PIL', 'cv2', 'pandas')]\n"
         "assert not imaging, imaging\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
@@ -193,9 +195,34 @@ def test_main_refuses_what_it_cannot_run(tmp_path, monkeypatch):
         wl.main(["--device", "cuda"])
     with pytest.raises(SystemExit, match="ROADMAP"):
         wl.main(["--device", "cpu", "--model_parallel", "2"])
+    # an existing data directory is read: one without the tree's files
+    # fails as the JAX main's does, on the first mapping file
     (tmp_path / "data" / "openeds2019").mkdir(parents=True)
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError, match="OpenEDS_train_userID_mapping_to_images.json"):
         wl.main(["--device", "cpu", "--data_dir", str(tmp_path / "data")])
+
+
+def test_main_runs_from_a_data_tree(tmp_path, monkeypatch):
+    """The 2019 main reads a fake OpenEDS2019 tree (frames and labels) and
+    evaluates its test split: every test frame of the loader, in order."""
+    from iris_style_transfer_tpu_torch.data import fake_openeds, load_data_openeds2019
+    from iris_style_transfer_tpu_torch.utils import seed as seed_all
+    from iris_style_transfer_tpu_torch.workloads import ist_openeds2019 as wl
+
+    fake_openeds.write_openeds2019(str(tmp_path / "data"), users=(2, 1, 1), frames_per_user=8, height=H, width=W)
+    monkeypatch.chdir(tmp_path)
+    seed_all(7, verbose=False)
+    _, _, _, test_x, _, test_m, num_class = load_data_openeds2019(load_seg=True, data_dir=str(tmp_path / "data"
+                                                                                            / "openeds2019"))
+    results = wl.main(["-bs", "2", "--nst_epochs", "1", "-seed", "7", "--data_dir", str(tmp_path / "data"),
+                       "--device", "cpu", "--compute_dtype", "float32"])
+    log = results[("test/", 1.0, 1)]
+    for key in ("test/pre/c1/accu", "test/post/c2/mis/f1", "test/post/mean_miou", "test//s_loss"):
+        assert key in log and np.isfinite(log[key]), key
+    out = tmp_path / "saved" / "openeds2019" / "sw_1.0_epoch_1" / "test"
+    assert len(np.load(out / "mious_pre.npy")) == len(np.load(out / "mious_post.npy")) == len(test_x) > 0
+    np.testing.assert_array_equal(read_png(str(out / "batch_0_raw.png"))[..., 0], test_x[0][..., 0])
+    assert num_class == 4
 
 
 @pytest.mark.slow

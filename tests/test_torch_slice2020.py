@@ -158,9 +158,44 @@ def test_main_refuses_what_it_cannot_run(tmp_path, monkeypatch):
         wl.main(["--device", "cuda"])
     with pytest.raises(SystemExit, match="ROADMAP"):
         wl.main(["--device", "cpu", "--model_parallel", "2"])
+    # an existing data directory is read: one without the tree's files
+    # fails as the JAX main's does, on the style frame
     (tmp_path / "data" / "openeds2020" / "openEDS2020-GazePrediction").mkdir(parents=True)
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError, match="2577"):
         wl.main(["--device", "cpu", "--data_dir", str(tmp_path / "data")])
+
+
+def test_main_runs_from_a_data_tree(tmp_path, monkeypatch):
+    """The 2020 main reads a fake OpenEDS2020 tree: the validation labels
+    eagerly, the frames streamed, the style frame test/sequences/2577/023.
+    Its prediction files equal, bit for bit, those of the same main fed
+    the frames the tree was written from, from memory in the stream's
+    order."""
+    from iris_style_transfer_tpu_torch.data import batch_iterator, fake_openeds, load_labels_openeds2020
+
+    base = fake_openeds.write_openeds2020(str(tmp_path / "data"), sequences=(0, 1, 1), frames_per_sequence=3,
+                                          height=H, width=W, seed=3)
+    frames = np.round(np.clip(tsyn.synthetic_eye_batch(3, H, W, seed=4, gaze=True)[0], 0, 1) * 255).astype(np.uint8)
+    labels = load_labels_openeds2020(base, "validation/")
+    argv = ["-bs", "4", "--nst_epochs", "1", "--data_dir", str(tmp_path / "data"), "--device", "cpu",
+            "--compute_dtype", "float32"]
+    preds = {}
+    for run in ("disk", "memory"):
+        (tmp_path / run).mkdir()
+        monkeypatch.chdir(tmp_path / run)
+        if run == "memory":
+            monkeypatch.setattr(wl, "stream_openeds2020",
+                                lambda path, postfix, bs: batch_iterator((frames, labels), bs, pad_final=True))
+        log = wl.main(argv)[("validation/", 1.0, 1)]
+        for key in ("validation//pre/degree_distance1", "validation//post/degree_distance2", "validation//s_loss"):
+            assert np.isfinite(log[key]), key
+        out = tmp_path / run / "saved" / "openeds2020" / "sw_1.0_epoch_1" / "validation"
+        preds[run] = {n: np.load(out / n) for n in ("preds1_pre.npy", "preds2_pre.npy", "preds1_post.npy",
+                                                    "preds2_post.npy", "labels.npy", "gts.npy")}
+    for name, a in preds["disk"].items():
+        assert a.shape[0] == 3  # one batch of 4, its padded row masked out
+        np.testing.assert_array_equal(a, preds["memory"][name], err_msg=name)
+    np.testing.assert_array_equal(preds["disk"]["labels.npy"], labels)
 
 
 @pytest.mark.slow

@@ -176,15 +176,50 @@ def test_training_mains_refuse_what_they_cannot_run(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     (tmp_path / "data" / "openeds2019").mkdir(parents=True)
     (tmp_path / "data" / "openeds2020" / "openEDS2020-GazePrediction").mkdir(parents=True)
+    # an existing data directory is read: one without the tree's files
+    # fails as the JAX mains' do, on the first file they look for
+    missing = {wl.main: "train/sequences", wl2019.main: "OpenEDS_train_userID_mapping_to_images.json"}
     for main in (wl.main, wl2019.main):
         with pytest.raises(SystemExit, match="CUDA is not available"):
             main([])
         with pytest.raises(SystemExit, match="ROADMAP"):
             main(["--device", "cpu", "--model_parallel", "2"])
-        with pytest.raises(SystemExit, match="ROADMAP"):
+        with pytest.raises(FileNotFoundError, match=missing[main]):
             main(["--device", "cpu", "--data_dir", str(tmp_path / "data")])
     with pytest.raises(SystemExit, match="96 or less"):
         wl.main(["--device", "cpu", "--data_dir", str(tmp_path / "nodata")])  # the JAX default bs 128
+
+
+@pytest.mark.parametrize("main", ["gaze1", "gaze2", "classification"])
+def test_training_mains_run_from_data_trees(tmp_path, monkeypatch, main):
+    """Each trainer reads a fake tree: estimator 1 on landmarks that B7
+    extracts from the frames, estimator 2 on frames streamed per epoch
+    (padded evaluation batches masked by ``valid``), the classifier on the
+    OpenEDS2019 frames."""
+    from iris_style_transfer_tpu_torch.data import fake_openeds
+
+    monkeypatch.chdir(tmp_path)
+    data = str(tmp_path / "data")
+    argv = ["-E", "1", "-bs", "4", "-SP", "-1", "--data_dir", data, "--device", "cpu", "--compute_dtype", "float32"]
+    if main == "classification":
+        fake_openeds.write_openeds2019(data, users=(2, 1, 1), frames_per_user=8, height=H, width=W)
+        log = wl2019.main(argv)
+        keys = ("train/c1/accu", "train/c2/loss", "test/c1/f1", "train/steps_per_sec")
+    else:
+        # 2 x 5 training frames: two steps at bs 4, the last two dropped;
+        # 5 validation frames: one full batch and one padded
+        fake_openeds.write_openeds2020(data, sequences=(2, 1, 0), frames_per_sequence=5, height=H, width=W)
+        calls = []
+        real = wl.stream_openeds2020
+        monkeypatch.setattr(wl, "stream_openeds2020", lambda *a, **k: calls.append(k) or real(*a, **k))
+        log = wl.main(["-estimator", main[-1], *argv])
+        keys = ("train/loss", "train/degree_distance", "valid/loss", "valid/degree_distance", "train/steps_per_sec")
+        if main == "gaze2":  # three lrs x (one training epoch + one validation pass), all streamed
+            assert len(calls) == 6 and calls[0] == {"shuffle_seed": 42, "drop_remainder": True}
+        else:
+            assert not calls
+    for key in keys:
+        assert key in log and np.isfinite(log[key]), key
 
 
 def _run_mains(tmp_path, monkeypatch):
