@@ -82,6 +82,13 @@ exit:
                extraction) and estimator 2 (bs 128, streamed); the decode
                rate per filter type on 1 thread and on the loader's 8,
                beside the estimator-2 trainer's frames/s.
+ 11. replicate — the three replication tools (``tools/``) in-process at
+               full width (400x640 twin frames) and cut depth, in a
+               temporary directory: every summary key present and finite,
+               B7's training loss falling, launches as the cuts derive
+               them; then one B7 training step at bs 2 split into the
+               depthwise forward kernel, the plain f32 depthwise backward
+               and the rest, in device time, beside its wall time.
 
 In every main-path phase conv1 launches exactly once per VGG19 pass.
 
@@ -1521,6 +1528,195 @@ def phase_real_data(card: str) -> dict:
     return out
 
 
+# the replication phase's cuts (the tools' flags; full width: 400x640 frames,
+# full VGG19, RITnet, B7 and ResNet50)
+REP_2019 = {"users": 8, "n_per_user": 8, "ritnet_epochs": 2, "epochs": 3, "bs": 16, "ist_bs": 8}
+REP_ROT_ANGLES, REP_ROT_PERS = (0, 90), (0, 0.4)
+REP_GAZE = {"n_train": 16, "n_eval": 8, "effnet_epochs": 1, "estimator1_steps": 50, "estimator2_epochs": 1,
+            "ist_bs": 8}
+REP_SEED = 42  # the tools' default
+REP_KEYS_2019 = ("ritnet/train_miou", "train/c1/accu", "train/c2/accu", "test/c1/accu", "test/c2/accu",
+                 "ist/pre/c1/accu", "ist/pre/c2/accu", "ist/post/c1/accu", "ist/post/c2/accu",
+                 "ist/post/c1/mis/accu", "ist/post/c2/mis/accu", "ist/pre/mean_miou", "ist/post/mean_miou",
+                 "chance", "stylized_images_per_min")
+REP_KEYS_GAZE = ("effnet/eval_miou", "pre/degree_distance1", "pre/degree_distance2", "post/degree_distance1",
+                 "post/degree_distance2", "chance_degree_distance", "stylized_images_per_min")
+
+
+def _flags(cuts: dict) -> list[str]:
+    return [a for k, v in cuts.items() for a in (f"--{k}", str(v))]
+
+
+def _check_summary(where: str, summary: dict, keys) -> None:
+    missing = [k for k in keys if k not in summary or not math.isfinite(summary[k])]
+    if missing:
+        raise AssertionError(f"{where}: summary keys missing or not finite: {missing}")
+
+
+def _b7_step_split(card: str) -> dict:
+    """One B7 training step at bs 2 on 400x640 frames (the gaze tool's
+    ``b7_train_loss`` and Adam), split three ways in device time: the
+    depthwise kernel's forward (each launch's mean time x its 51 launches),
+    the plain f32 depthwise backward (the device time torch.profiler gives
+    the ``DwConvBnSiluBackward`` nodes of the traced step; also its 51
+    calls at the step's shapes alone, in device time) and the rest of the
+    step's device time.  The step's wall time in CUDA events beside it says
+    how far the host sets the pace."""
+    import torch
+    from iris_style_transfer_tpu_torch.data import synthetic_eye_batch
+    from iris_style_transfer_tpu_torch.models import EfficientNet
+    from iris_style_transfer_tpu_torch.ops import depthwise as dw
+    from iris_style_transfer_tpu_torch.tools.replicate_synthetic_gaze import b7_train_loss
+    from iris_style_transfer_tpu_torch.workloads.iris_classification import trainable
+
+    imgs, segs, _ = synthetic_eye_batch(2, seed=SEED)
+    x, y = torch.from_numpy(imgs).cuda(), torch.from_numpy(segs).long().cuda()
+    params = EfficientNet.init(torch.Generator().manual_seed(SEED), device="cuda")
+    opt = torch.optim.Adam(trainable(params), lr=1e-3)
+
+    def step():
+        loss = b7_train_loss(params, x, y)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+
+    wall_ms = min(_time_ms(step, iters=5) for _ in range(2))
+    step_ms = _device_ms(step, n=2)
+
+    def backward_nodes(ev):
+        return max((getattr(e, "device_time_total", 0) for e in ev if "DwConvBnSiluBackward" in e.key), default=0)
+
+    before = dw.LAUNCHES["dw_conv_bn_silu"]
+    ev, tries = _trace(step, lambda ev: backward_nodes(ev) > 0 and any("dw_conv_bn_silu_kernel" in e.key for e in ev),
+                       "dw_conv_bn_silu_kernel and the DwConvBnSiluBackward nodes in one B7 training step")
+    launched = (dw.LAUNCHES["dw_conv_bn_silu"] - before) / tries
+    if launched != 51:
+        raise AssertionError(f"one B7 training step launched dw_conv_bn_silu {launched} times; 51 expected")
+    kernel = [e for e in _device_events(ev) if "dw_conv_bn_silu_kernel" in e.key]
+    fwd_ms = sum(e.self_device_time_total / e.count for e in kernel) * 51 / 1e3
+    bwd_ms = backward_nodes(ev) / 1e3
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    calls = []
+    for (k, c, h, w), n in _b7_depthwise_shapes().items():
+        xb, wt, a, b = _dw_inputs((2, h, w, c), k, torch.bfloat16, gen)
+        gy = torch.randn(xb.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        gy = gy.contiguous(memory_format=torch.channels_last)
+        calls += [(xb, wt.float(), a, b, k, gy)] * n  # w stays float32 in training
+
+    def backward_all():
+        for xb, wt, a, b, k, gy in calls:
+            dw.dw_conv_bn_silu_bwd(xb, wt, a, b, k, gy)
+
+    alone_ms = _device_ms(backward_all, n=2)
+    out = {"wall_ms": wall_ms, "device_ms": step_ms, "dw_fwd_ms": fwd_ms, "dw_bwd_ms": bwd_ms,
+           "dw_bwd_alone_ms": alone_ms, "rest_ms": step_ms - fwd_ms - bwd_ms}
+    _log("replicate", f"one B7 training step at (2,400,640,1) bs 2, bf16 activations, on {card}: wall "
+         f"{wall_ms:.2f} ms (CUDA events), device {step_ms:.2f} ms: depthwise forward kernel {fwd_ms:.2f} ms "
+         f"({100 * fwd_ms / step_ms:.1f}%), plain f32 depthwise backward {bwd_ms:.2f} ms ({100 * bwd_ms / step_ms:.1f}%; "
+         f"its 51 calls alone {alone_ms:.2f} ms), rest {out['rest_ms']:.2f} ms ({100 * out['rest_ms'] / step_ms:.1f}%)")
+    return out
+
+
+def phase_replicate(card: str) -> dict:
+    """The three replication tools in-process on the card at full width
+    (400x640 twin frames; full VGG19, RITnet, B7 and ResNet50) and cut
+    depth, in a temporary working directory: every summary key present
+    and finite, B7's training loss falling, launches as the cuts derive
+    them; then the B7 training step's split."""
+    import torch
+    from iris_style_transfer_tpu_torch.data import synthetic_openeds2019
+    from iris_style_transfer_tpu_torch.ops import conv1 as c1
+    from iris_style_transfer_tpu_torch.ops import depthwise as dw
+    from iris_style_transfer_tpu_torch.ops import relu_pool as rp
+    from iris_style_transfer_tpu_torch.ops import relu_stats as rs
+    from iris_style_transfer_tpu_torch.tools import replicate_rotation as tool_rot
+    from iris_style_transfer_tpu_torch.tools import replicate_synthetic as tool_2019
+    from iris_style_transfer_tpu_torch.tools import replicate_synthetic_gaze as tool_gaze
+    from iris_style_transfer_tpu_torch.workloads.ist_openeds2020 import SEG_CHUNK
+
+    t_phase = time.perf_counter()
+    counters = (c1.LAUNCHES, rp.LAUNCHES, rs.LAUNCHES, dw.LAUNCHES)
+    twins: dict = {}  # made once, for both recognition tools and the counts below
+    real_twin, real_b7 = (tool_2019.synthetic_openeds2019, tool_rot.synthetic_openeds2019), tool_gaze.train_efficientnet
+    b7_losses = []
+
+    def twin(n_per_user=6, num_users=8, seed=0):
+        return twins.setdefault((n_per_user, num_users, seed), synthetic_openeds2019(n_per_user, num_users, seed))
+
+    def train_b7(*a, **k):
+        params, losses = real_b7(*a, **k)
+        b7_losses.append(losses)
+        return params, losses
+
+    out = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        tool_2019.synthetic_openeds2019 = tool_rot.synthetic_openeds2019 = twin
+        tool_gaze.train_efficientnet = train_b7
+        try:
+            _, train_y, _, _, test_y, _, _ = twin(REP_2019["n_per_user"], REP_2019["users"], REP_SEED)
+            n_train, n_test = len(train_y), len(test_y)
+            runs = (
+                ("recognition", tool_2019.main, _flags(REP_2019) + ["--nst_epochs", str(MAIN_CLOSURES)]),
+                ("rotation", tool_rot.main, ["--users", str(REP_2019["users"]), "--n_per_user",
+                                             str(REP_2019["n_per_user"]), "--angles", ",".join(map(str, REP_ROT_ANGLES)),
+                                             "--pers", ",".join(map(str, REP_ROT_PERS))]),
+                ("gaze", tool_gaze.main, _flags(REP_GAZE) + ["--nst_epochs", str(MAIN_CLOSURES)]),
+            )
+            for name, main, argv in runs:
+                _reset(counters)
+                t0 = time.perf_counter()
+                summary = main([*argv, "--device", "cuda"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = {k: v for counts in counters for k, v in counts.items()}
+                out[name] = {"summary": summary, "launches": launches, "wall_s": wall}
+                _log("replicate", f"{name} on {card}: {wall:.1f} s; launches {launches}; summary {summary}")
+        finally:
+            tool_2019.synthetic_openeds2019, tool_rot.synthetic_openeds2019 = real_twin
+            tool_gaze.train_efficientnet = real_b7
+            os.chdir(cwd)
+
+    # the launches each cut derives: conv1 and relu_pool_fwd once per VGG19
+    # pass, relu_pool_bwd once per NST closure, the depthwise kernel 51
+    # times per B7 training forward and 102 per flip-TTA apply
+    ist_batches = -(-n_test // REP_2019["ist_bs"])
+    vgg_2019 = (REP_2019["epochs"] * (n_train // REP_2019["bs"] + -(-n_test // REP_2019["bs"]))
+                + ist_batches * (MAIN_CLOSURES + 4))
+    vgg_rot = -(-n_test // 8) * sum(1 if level == 0 else 2 for level in REP_ROT_ANGLES + REP_ROT_PERS)
+    g = REP_GAZE
+    b7_applies = (-(-g["n_eval"] // 8) + -(-g["n_train"] // 8) + 1
+                  + 2 * -(-g["n_eval"] // g["ist_bs"]) * -(-g["ist_bs"] // SEG_CHUNK))
+    gaze_nst = -(-g["n_eval"] // g["ist_bs"])
+    want = {
+        "recognition": {"conv1": vgg_2019, "relu_pool_fwd": vgg_2019, "relu_pool_bwd": ist_batches * MAIN_CLOSURES,
+                        "relu_stats_fwd": 0, "relu_stats_bwd": 0, "dw_conv_bn_silu": 0},
+        "rotation": {"conv1": vgg_rot, "relu_pool_fwd": vgg_rot, "relu_pool_bwd": 0, "relu_stats_fwd": 0,
+                     "relu_stats_bwd": 0, "dw_conv_bn_silu": 0},
+        "gaze": {"conv1": gaze_nst * (MAIN_CLOSURES + 2), "relu_pool_fwd": gaze_nst * (MAIN_CLOSURES + 2),
+                 "relu_pool_bwd": gaze_nst * MAIN_CLOSURES, "relu_stats_fwd": 0, "relu_stats_bwd": 0,
+                 "dw_conv_bn_silu": 51 * g["effnet_epochs"] * (g["n_train"] // 2) + 102 * b7_applies},
+    }
+    for name, w in want.items():
+        if out[name]["launches"] != w:
+            raise AssertionError(f"replicate {name} launched {out[name]['launches']}; {w} expected")
+    _check_summary("replicate_synthetic", out["recognition"]["summary"], REP_KEYS_2019)
+    rot_keys = [f"{kind}/{lv:g}/{h}" for kind, levels in (("rot", REP_ROT_ANGLES), ("pers", REP_ROT_PERS))
+                for lv in levels for h in ("c1", "c2") + (("retention_c1", "retention_c2") if lv else ())]
+    _check_summary("replicate_rotation", out["rotation"]["summary"], ["chance", *rot_keys])
+    _check_summary("replicate_synthetic_gaze", out["gaze"]["summary"], REP_KEYS_GAZE)
+    losses = b7_losses[0]
+    if not (len(losses) == g["n_train"] // 2 and torch.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"B7's training loss did not fall over its steps: {losses.tolist()}")
+    _log("replicate", f"B7 training loss over {len(losses)} steps at bs 2: {losses[0].item():.4f} -> "
+         f"{losses[-1].item():.4f}; launches as derived: {want}")
+    out["b7_step"] = _b7_step_split(card)
+    _log("replicate", f"phase took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1547,6 +1743,7 @@ def main() -> int:
     train = phase_train2019(card)
     phase_train_gaze(card)
     phase_real_data(card)
+    phase_replicate(card)
     src = "iris_style_transfer_tpu_torch/ops/csrc/"
     stats_fwd = launches_st["relu_stats_fwd"] + launches2020_st["relu_stats_fwd"]
     stats_bwd = launches_st["relu_stats_bwd"] + launches2020_st["relu_stats_bwd"]

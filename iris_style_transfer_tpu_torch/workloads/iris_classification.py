@@ -98,22 +98,37 @@ def _metrics(prefix: str, labels: torch.Tensor, preds: dict, num_class: int, log
         log.update({f"{prefix}/{name}/{k}": float(v) for k, v in m.items()})
 
 
-def iris_classification(cfg: WorkloadConfig, device: torch.device, vgg_weights: str = "") -> dict:
-    gen = seed_all(cfg.seed)
-    train_x, train_y, _, test_x, test_y, _, num_class = _load_data(cfg)
+def seeded_vgg19(seed: int, device, vgg_weights: str = "") -> tuple[dict, torch.Generator]:
+    """The VGG19 the classifier heads are trained against: the ported
+    weights when given or bundled, else ``VGG19.init`` as the first draw of
+    ``seed_all(seed)``'s generator.  Returns the generator too, for the
+    draws that follow.  The replication tools build their VGG19 here, so
+    their evaluation sees the trainer's features by construction."""
+    gen = seed_all(seed, verbose=False)
+    return load_pretrained("vgg19", vgg_weights, lambda: VGG19.init(gen, device), device), gen
+
+
+def iris_classification(cfg: WorkloadConfig, device: torch.device, vgg_weights: str = "", data=None,
+                        ritnet_params: dict | None = None, ckpt_dir: str = CKPT_DIR) -> dict:
+    """Train both heads; ``data`` (the 7-tuple of ``load_data_openeds2019``)
+    and ``ritnet_params`` replace the loaded dataset and the bundled RITnet,
+    and the checkpoints go to ``ckpt_dir``."""
+    seed_all(cfg.seed)
+    train_x, train_y, _, test_x, test_y, _, num_class = _load_data(cfg) if data is None else data
     print("number of classes:", num_class)
     if len(train_y) < cfg.bs:
         raise SystemExit(f"{len(train_y)} training crops give no step at -bs {cfg.bs} "
                          "(the last short batch is dropped); lower -bs")
 
-    ritnet_params = RITnet.pretrained(device)
+    if ritnet_params is None:
+        ritnet_params = RITnet.pretrained(device)
     aug_gen = torch.Generator().manual_seed(cfg.seed)  # rotation / perspective draws
     aug = (cfg.rotation_prob, cfg.rotation_degree, cfg.perspect_prob, cfg.perspect_degree, cfg.glint_threshold)
     tr_x, tr_y = build_ir_dataset(train_x, train_y, ritnet_params, aug_gen, *aug, device=device)
     te_x, te_y = build_ir_dataset(test_x, test_y, ritnet_params, aug_gen, *aug, device=device)
 
     compute_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
-    vgg_params = load_pretrained("vgg19", vgg_weights, lambda: VGG19.init(gen, device), device)
+    vgg_params, gen = seeded_vgg19(cfg.seed, device, vgg_weights)
     train_params = {
         "c1": Classifier1.init(gen, num_class, device),
         "c2": Classifier2.init(gen, num_class=num_class, device=device),
@@ -126,7 +141,7 @@ def iris_classification(cfg: WorkloadConfig, device: torch.device, vgg_weights: 
     opt = torch.optim.Adam(trainable(train_params), lr=cfg.lr)
     train_step, eval_step = make_steps(compute_dtype)
 
-    start_epoch = resume_training_state(CKPT_DIR, train_params, opt) if cfg.resume else 0
+    start_epoch = resume_training_state(ckpt_dir, train_params, opt) if cfg.resume else 0
     if start_epoch:
         print(f"resumed from epoch {start_epoch}")
 
@@ -164,7 +179,7 @@ def iris_classification(cfg: WorkloadConfig, device: torch.device, vgg_weights: 
 
         # the reference's checkpoint conditions (:111-113), plus the full state
         if cfg.save_period > 0 and cfg.rotation_prob == cfg.perspect_prob == 0 and (e + 1) % cfg.save_period == 0:
-            save_training_state(CKPT_DIR, e + 1, train_params, opt)
+            save_training_state(ckpt_dir, e + 1, train_params, opt)
 
     logger.finish()
     return final_metrics

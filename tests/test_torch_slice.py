@@ -178,8 +178,11 @@ def test_port_imports_no_jax():
         "from iris_style_transfer_tpu_torch.workloads import gaze_estimation, iris_classification\n"
         "from iris_style_transfer_tpu_torch.demos import iris_nst_demo, nst_demo\n"
         "from iris_style_transfer_tpu_torch.data import fake_openeds, native_loader, openeds2020\n"
+        "from iris_style_transfer_tpu_torch.tools import replicate_rotation, replicate_synthetic\n"
+        "from iris_style_transfer_tpu_torch.tools import replicate_synthetic_gaze\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'iris_style_transfer_tpu.'))]\n"
         "assert not bad and 'iris_style_transfer_tpu' not in sys.modules, bad\n"
+        "assert not [m for m in sys.modules if m == 'tools' or m.startswith('tools.')]\n"
         "imaging = [m for m in sys.modules if m.split('.')[0] in ('PIL', 'cv2', 'pandas')]\n"
         "assert not imaging, imaging\n"
     )
