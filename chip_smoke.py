@@ -35,6 +35,15 @@ exit:
                tensor-core kernel), a Gram-loss closure (the Gram's
                tensor-core kernel; an f32 Gram its CUDA-core one) and a B7
                U-Net apply launch them.
+  3b. connected — the union-find labelling (``ops/connected.py``) bit-exact
+               against its plain version at (64, 400, 640), both
+               connectivities: RITnet's iris masks of 64 twin frames, noise
+               at 0.3, 0.45 and 0.6, a serpentine, all false, all true, B =
+               1; the lower label on a tie; then, launches counted,
+               ``mask_and_crop_iris(use_area_opening=True)`` at bs 64,
+               ``extract_eye_landmarks(select_largest=True)`` and
+               ``GazeEstimator1Complicated`` at bs 8, against the CPU path;
+               the kernel's time against the plain version's and its bound.
   4. nst     — the production NST loop (bf16 compute, bf16 L-BFGS history,
                m = 10) at (64, 3, 224, 224) on seeded VGG19 weights, once
                with the classic BN taps and once with the stats taps (their
@@ -161,10 +170,11 @@ def phase_device():
 
 
 def phase_build():
-    from iris_style_transfer_tpu_torch.ops import blockwise_gram, conv1, cuda_build, depthwise, relu_pool, relu_stats
+    from iris_style_transfer_tpu_torch.ops import (blockwise_gram, connected, conv1, cuda_build, depthwise, relu_pool,
+                                                   relu_stats)
 
     t0 = time.perf_counter()
-    mods = (relu_pool, depthwise, relu_stats, blockwise_gram, conv1)
+    mods = (relu_pool, depthwise, relu_stats, blockwise_gram, conv1, connected)
     with ThreadPoolExecutor(max_workers=len(mods)) as pool:  # one nvcc per source, together
         for f in [pool.submit(m._library) for m in mods]:
             f.result()
@@ -893,6 +903,138 @@ def phase_kernels_conv1(card: str):
          f"conv1_mma_kernel {traced} time(s)")
     return {"err": worst, "ms": ms["kernel"], "plain_ms": ms["plain"], "library_ms": ms["library"],
             "bound": ms["bound"]}
+
+
+CC_FRAMES, CC_H, CC_W = 64, 400, 640  # the 2019 main's batch at the frames' full size
+CC_AREA = 500  # mask_and_crop_iris's default area_threshold
+CC_ESTIMATOR_BS = 8
+# crops, card against CPU: one float32 ulp of a sample coordinate in [512, 1024)
+# (the card contracts crop_and_resize's (i + 0.5) * scale - 0.5 + r_min into
+# FMAs, moving a coordinate by an ulp and a bilinear weight by as much)
+CROP_TOL = 512 * 1.1920929e-07
+
+
+def _serpentine(h: int, w: int):
+    """Full rows 0, 2, 4, ... joined at alternating ends: one component
+    whose path runs through every row (128k pixels long at 400x640)."""
+    import torch
+
+    m = torch.zeros((1, h, w), dtype=torch.bool)
+    m[:, 0::2] = True
+    for k, y in enumerate(range(1, h, 2)):
+        m[0, y, w - 1 if k % 2 == 0 else 0] = True
+    return m
+
+
+def phase_connected(card: str) -> dict:
+    """The union-find labelling (``ops/csrc/connected.cu``) against its
+    plain version on the card, bit-exact at both connectivities: RITnet's
+    iris masks of 64 twin frames, seeded noise at 0.3, 0.45 and 0.6, a
+    serpentine, all-false and all-true, B = 1 and 64; the tie rule of
+    largest_component; then the paths that wait on it at full width, each
+    against the port's CPU path: mask_and_crop_iris(use_area_opening=True)
+    at bs 64, extract_eye_landmarks(select_largest=True) on RITnet's
+    segmentations, GazeEstimator1Complicated at bs 8; launches counted over
+    those paths; the kernel's time against the plain version's and its
+    bound."""
+    import torch
+    from iris_style_transfer_tpu_torch.data import synthetic_eye_batch
+    from iris_style_transfer_tpu_torch.models import GazeEstimator1Complicated, RITnet
+    from iris_style_transfer_tpu_torch.ops import connected as cc
+    from iris_style_transfer_tpu_torch.ops.ellipse import extract_eye_landmarks
+    from iris_style_transfer_tpu_torch.pipelines.iris import extract_iris_batch, iris_mask_from_seg, mask_and_crop_iris
+
+    t_phase = time.perf_counter()
+    frames_cpu = torch.from_numpy(synthetic_eye_batch(CC_FRAMES, CC_H, CC_W, seed=SEED + 9)[0])
+    frames = frames_cpu.cuda()
+    ritnet = RITnet.pretrained(device="cuda")
+    deterministic, tf32 = torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32 = True, False  # RITnet twice, same labels
+    try:
+        with torch.no_grad():
+            seg = RITnet.apply(ritnet, frames)
+        iris = iris_mask_from_seg(seg, frames)[..., 0]
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+        full = (CC_FRAMES, CC_H, CC_W)
+        cases = [("RITnet iris masks", iris), ("RITnet iris masks, B = 1", iris[:1])]
+        cases += [(f"noise {d}", torch.rand(full, generator=gen, device="cuda") < d) for d in (0.3, 0.45, 0.6)]
+        cases += [("serpentine", _serpentine(CC_H, CC_W).cuda()),
+                  ("all false", torch.zeros(full, dtype=torch.bool, device="cuda")),
+                  ("all true", torch.ones(full, dtype=torch.bool, device="cuda"))]
+        err = 0
+        for what, m in cases:
+            for conn in (1, 2):
+                lab_k = cc._kernel(m, conn)
+                lab_p = cc.connected_components_plain(m, conn)
+                torch.cuda.synchronize()
+                err = max(err, int((lab_k - lab_p).abs().max()))
+                if not torch.equal(lab_k, lab_p):
+                    bad = int((lab_k != lab_p).sum())
+                    raise AssertionError(f"connected_components kernel != plain on {what} {tuple(m.shape)}, "
+                                         f"connectivity {conn}: {bad} labels differ")
+                roots = torch.arange(1, m[0].numel() + 1, device="cuda").view(m.shape[1:])
+                n = int((lab_k == roots).sum())  # a component's root pixel carries its own index + 1
+                _log("connected", f"{what} {tuple(m.shape)} connectivity {conn}: bit-exact, {n} components")
+        two = torch.zeros((1, 20, 24), dtype=torch.bool, device="cuda")
+        two[0, 2:6, 15:19] = True
+        two[0, 10:14, 3:7] = True
+        tie = cc.largest_component(two)
+        if not (torch.equal(tie.cpu(), cc.largest_component(two.cpu())) and bool(tie[0, 2:6, 15:19].all())
+                and int(tie.sum()) == 16):
+            raise AssertionError("largest_component on two equal squares does not keep the lower label")
+        _log("connected", "largest_component on two equal squares keeps the lower label, as on the CPU")
+
+        # the paths that wait on the labelling, launches counted over them
+        est_params = GazeEstimator1Complicated.init(torch.Generator().manual_seed(SEED))
+        est_params_dev = _to_device(est_params, "cuda")
+        cc.LAUNCHES["connected_components"] = 0
+        with torch.no_grad():
+            ir, masks, bboxes = mask_and_crop_iris(frames, ritnet, area_threshold=CC_AREA, use_area_opening=True)
+            lms = extract_eye_landmarks(seg, select_largest=True)
+            gz = GazeEstimator1Complicated.apply(est_params_dev, seg[:CC_ESTIMATOR_BS], extract_feature=True)
+        torch.cuda.synchronize()
+        launches = cc.LAUNCHES["connected_components"]
+        want = 3 * cc.KERNELS_PER_CALL  # the opening, then the pupil and the iris of the landmarks
+        if launches != want:
+            raise AssertionError(f"the area-opening and landmark paths launched the labelling {launches} times, "
+                                 f"{want} expected")
+        seg_cpu = seg.cpu()
+        ir_c, masks_c, bboxes_c = extract_iris_batch(frames_cpu, seg_cpu, open_area=CC_AREA)
+        err_ir = (ir.cpu() - ir_c).abs().max().item()
+        lms_c = extract_eye_landmarks(seg_cpu, select_largest=True)
+        err_lm = ((lms.cpu() - lms_c).abs() / (lms_c.abs() + 1.0)).max().item()
+        gz_c = GazeEstimator1Complicated.apply(est_params, seg_cpu[:CC_ESTIMATOR_BS], extract_feature=True)
+        err_gz = (gz.cpu() - gz_c).abs().max().item()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32 = deterministic, tf32
+    removed = int(iris.sum()) - int(masks.sum())
+    same = torch.equal(masks.cpu(), masks_c) and torch.equal(bboxes.cpu(), bboxes_c)
+    _log("connected", f"mask_and_crop_iris(use_area_opening=True, area {CC_AREA}) at {full}: masks and bboxes "
+         f"{'equal to' if same else 'DIFFER from'} the CPU path's, crops {err_ir:.3g} (tolerance {CROP_TOL:.3g}); "
+         f"the opening removed {removed} of {int(iris.sum())} iris pixels; extract_eye_landmarks("
+         f"select_largest=True): {err_lm:.3g} relative to the CPU path (|d| / (|cpu| + 1), tolerance 1e-4); "
+         f"GazeEstimator1Complicated bs {CC_ESTIMATOR_BS}: {err_gz:.3g} (tolerance 1e-4); {launches} labelling "
+         f"launches (3 calls x {cc.KERNELS_PER_CALL} kernels)")
+    if not (same and err_ir <= CROP_TOL and err_lm <= 1e-4 and err_gz <= 1e-4 and bool(torch.isfinite(lms).all())
+            and gz.shape == (CC_ESTIMATOR_BS, 3)):
+        raise AssertionError("the area-opening, landmark or complicated-estimator path on the card differs from "
+                             "the CPU path beyond its tolerance (see the line above)")
+
+    timed = {}
+    for what, m in [("RITnet iris masks", iris)] + [c for c in cases if c[0] in ("noise 0.45", "all true")]:
+        for conn in (2, 1):
+            lab = cc._kernel(m, conn)
+            t = _turns({"plain": lambda: cc.connected_components_plain(m, conn),
+                        "kernel": lambda: cc._kernel(m, conn)})
+            t["bound"] = _bound(_nbytes(m, lab))
+            _log("connected", f"{what} {tuple(m.shape)} connectivity {conn} ms/call on {card}: kernel "
+                 f"{t['kernel']:.4f} (plain {t['plain']:.4f}); bound {t['bound'][0]:.4f} ms by {t['bound'][1]} "
+                 f"({100 * t['bound'][0] / t['kernel']:.1f}% of it); no library call computes it")
+            timed[(what, conn)] = t
+    ms = timed[("RITnet iris masks", 2)]
+    _log("connected", f"phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"err": err, "ms": ms["kernel"], "plain_ms": ms["plain"], "bound": ms["bound"], "launches": launches,
+            "ms_conn1": timed[("RITnet iris masks", 1)]["kernel"], "removed": removed}
 
 
 def _nst_loop(make_kw: dict, shape, closures: int, seed: int):
@@ -1731,6 +1873,7 @@ def main() -> int:
     ks = phase_kernels_relu_stats(card)
     kg = phase_kernels_gram(card)
     kc = phase_kernels_conv1(card)
+    kcc = phase_connected(card)
     _, c_hist, s_hist = phase_nst(card)
     _, c_hist_st, s_hist_st = phase_nst(card, stats_taps=True)
     _compare_histories(s_hist, s_hist_st)
@@ -1767,6 +1910,9 @@ def main() -> int:
             ks["bwd_plain"], ks["bound_bwd"], None),
         row("conv1", "conv1.cu", "pallas_conv1.py:143", train["frozen"]["launches"]["conv1"], kc["err"], kc["ms"],
             kc["plain_ms"], kc["bound"], kc["library_ms"]),
+        row("connected_components", "connected.cu",
+            "connected.py:20 connected_components (a lax.while_loop of min-label propagation, not a Pallas kernel)",
+            kcc["launches"], kcc["err"], kcc["ms"], kcc["plain_ms"], kcc["bound"], None),
     ]}
     _log("done", f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(report))

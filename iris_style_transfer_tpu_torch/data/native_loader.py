@@ -17,7 +17,19 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from ..utils import png
 from ..utils.png import read_png_gray
+
+
+def available() -> bool:
+    """Whether the decode helper (``data/csrc/png_unfilter.cpp``) builds and
+    loads on this machine; :func:`decode_gray_batch` needs it and has no
+    fallback."""
+    try:
+        png._lib()
+    except (RuntimeError, OSError):  # no compiler, a failed build, an unloadable library
+        return False
+    return True
 
 
 def decode_gray_batch(

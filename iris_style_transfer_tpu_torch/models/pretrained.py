@@ -6,7 +6,8 @@ auto-discovered under the JAX package's ``models/weights/`` directory
 (read by path, under the JAX package's file names), then the seeded init.
 An auto-discovered npz is checked against the ``npz_sha256`` that
 ``tools/weights_manifest.json`` records for its kind, as the JAX package
-checks it: the manifest is read, by path, and never written here.
+checks it: the manifest is read, by path, and written only by
+:func:`record_npz_checksum`, which the loading never calls.
 """
 
 from __future__ import annotations
@@ -68,6 +69,23 @@ def verify_manifest_checksum(kind: str, path: str) -> None:
             "tools/fetch_and_port.sh, or update tools/weights_manifest.json "
             "if the npz was replaced deliberately."
         )
+
+
+def record_npz_checksum(kind: str, path: str) -> None:
+    """Record ``path``'s sha256 as the manifest's ``npz_sha256`` for
+    ``kind`` (after porting that artifact); raises ``KeyError`` when the
+    manifest has no entry for ``kind``."""
+    with open(MANIFEST_PATH) as f:
+        manifest = json.load(f)
+    for a in manifest.get("artifacts", []):
+        if a.get("kind") == kind:
+            a["npz_sha256"] = _sha256(path)
+            break
+    else:
+        raise KeyError(f"no manifest artifact entry for kind={kind}")
+    with open(MANIFEST_PATH, "w") as f:
+        json.dump(manifest, f, indent=2)
+        f.write("\n")
 
 
 def load_pretrained(kind: str, explicit_path: str = "", init_fn=None, device="cpu"):

@@ -7,18 +7,15 @@ filled mask's second moments, for a whole batch at once on the mask's
 device: the full axes of a solid ellipse are ``4 * sqrt(eigenvalue)`` of
 its covariance.  Every function takes a leading batch axis B and returns
 one row per image; a failed fit (too few pixels, empty mask) gives zeros,
-as the reference's None -> 0.
-
-``select_largest=True`` (fit only the largest connected component) needs
-``ops/connected.py``, which the port does not have yet.
+as the reference's None -> 0.  ``select_largest=True`` fits only each
+mask's largest connected component (``ops/connected.py``, 8-connected).
 """
 
 from __future__ import annotations
 
 import torch
 
-_NO_LARGEST = ("select_largest=True needs the connected-component labelling of "
-               "ops/connected.py, not ported yet (ROADMAP queue 1, item 7)")
+from .connected import largest_component
 
 
 def fit_ellipse_mask(mask: torch.Tensor, select_largest: bool = False, min_pixels: int = 5) -> torch.Tensor:
@@ -28,7 +25,7 @@ def fit_ellipse_mask(mask: torch.Tensor, select_largest: bool = False, min_pixel
     valid]``: ``cx`` is the column coordinate (cv2's), ``angle_deg`` in
     [0, 180) the rotation of the first axis from the x-axis."""
     if select_largest:
-        raise NotImplementedError(_NO_LARGEST)
+        mask = largest_component(mask)
     m = mask.float()
     _, h, w = m.shape
     ys = torch.arange(h, dtype=torch.float32, device=m.device)[:, None]

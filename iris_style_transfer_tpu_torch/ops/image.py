@@ -147,6 +147,18 @@ def pad_height(x: torch.Tensor, top: int, bottom: int, value: float = 0.0) -> to
     return torch.nn.functional.pad(x, (0, 0, 0, 0, top, bottom), value=value)
 
 
+def resize_bilinear(x: torch.Tensor, size: tuple[int, int], antialias: bool = True) -> torch.Tensor:
+    """Bilinear resize of channel-last (..., H, W, C) images to (...,
+    size[0], size[1], C): half-pixel centres, and with ``antialias`` a
+    triangle filter widened by the scale when shrinking, as
+    ``jax.image.resize(..., "bilinear")`` and torchvision's ``Resize`` do."""
+    *lead, h, w, c = x.shape
+    y = x.reshape(-1, h, w, c).permute(0, 3, 1, 2).float()
+    y = torch.nn.functional.interpolate(y, size=tuple(size), mode="bilinear", align_corners=False,
+                                        antialias=antialias)
+    return y.permute(0, 2, 3, 1).reshape(*lead, size[0], size[1], c).to(x.dtype)
+
+
 def nonzero_bbox(mask: torch.Tensor) -> torch.Tensor:
     """Batched inclusive bbox ``[r_min, c_min, r_max, c_max]`` (int32) of the
     nonzero extent of (B, H, W) masks; an empty mask gives the full image."""

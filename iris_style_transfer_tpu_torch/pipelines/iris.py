@@ -5,9 +5,9 @@ Counterpart of ``iris_style_transfer_tpu/pipelines/iris.py`` (reference
 (seg == 2) & (frame <= glint threshold), crop to the nonzero bbox of the
 masked frame, resize, grayscale -> RGB; and the inverse paste back into
 the frame.  Frames and masks are channel-last (B, H, W, 1); the NST takes
-and returns NCHW images.  ``area_opening`` stays off, as it is by default
-in the JAX package; asking for it raises (``ops/connected.py`` is the
-next module to port: ROADMAP queue 1, item 7).
+and returns NCHW images.  Area opening (``ops/connected.py``) removes the
+mask's small blobs when asked for; it is off by default, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -17,14 +17,21 @@ from typing import Callable
 import torch
 
 from ..models.ritnet import RITnet
+from ..ops.connected import area_opening
 from ..ops.image import composite_iris, crop_and_resize, gray_to_rgb, nonzero_bbox, rgb_to_grayscale
 
 IRIS_CLASS = 2
 
 
-def iris_mask_from_seg(seg: torch.Tensor, img: torch.Tensor, glint_threshold: float = 0.8) -> torch.Tensor:
-    """(B, H, W) labels + (B, H, W, 1) frames -> (B, H, W, 1) bool iris mask."""
-    return (seg == IRIS_CLASS)[..., None] & (img <= glint_threshold)
+def iris_mask_from_seg(seg: torch.Tensor, img: torch.Tensor, glint_threshold: float = 0.8, open_area: int = 0,
+                       connectivity: int = 2) -> torch.Tensor:
+    """(B, H, W) labels + (B, H, W, 1) frames -> (B, H, W, 1) bool iris
+    mask; with ``open_area > 0`` its components under ``open_area`` pixels
+    are removed."""
+    m = (seg == IRIS_CLASS)[..., None] & (img <= glint_threshold)
+    if open_area > 0:
+        m = area_opening(m[..., 0], open_area, connectivity)[..., None]
+    return m
 
 
 def extract_iris_batch(
@@ -33,11 +40,13 @@ def extract_iris_batch(
     glint_threshold: float = 0.8,
     out_size: tuple[int, int] = (224, 224),
     rgb: bool = True,
+    open_area: int = 0,
+    connectivity: int = 2,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Frames (B, H, W, 1) + labels (B, H, W) -> (irises (B, *out_size, 3 or
     1), masks (B, H, W, 1), bboxes (B, 4)); the bbox is the nonzero extent
-    of the masked frame."""
-    masks = iris_mask_from_seg(segs, imgs, glint_threshold)
+    of the masked frame.  ``open_area``: see :func:`iris_mask_from_seg`."""
+    masks = iris_mask_from_seg(segs, imgs, glint_threshold, open_area, connectivity)
     masked = imgs * masks.to(imgs.dtype)
     bboxes = nonzero_bbox(masked[..., 0])
     irises = crop_and_resize(masked, bboxes, out_size)
@@ -58,13 +67,11 @@ def mask_and_crop_iris(
     """The ``mask_and_crop_iris`` entry point, RITnet-backed and batched:
     (B, H, W, 1) eye frames in [0,1] -> (RGB iris crops (B, *out_size, 3),
     iris masks (B, H, W, 1), int bboxes (B, 4) ``[r_min, c_min, r_max,
-    c_max]``)."""
-    if use_area_opening:
-        raise NotImplementedError(
-            f"area opening (area {area_threshold}, connectivity {connectivity}) needs "
-            "ops/connected.py, which is not ported yet (ROADMAP queue 1, item 7)")
+    c_max]``).  ``use_area_opening`` removes the mask's components under
+    ``area_threshold`` pixels before the crop."""
     seg = RITnet.apply(ritnet_params, x)
-    return extract_iris_batch(x, seg, glint_threshold, out_size=out_size, rgb=True)
+    return extract_iris_batch(x, seg, glint_threshold, out_size=out_size, rgb=True,
+                              open_area=area_threshold if use_area_opening else 0, connectivity=connectivity)
 
 
 def composite_batch(

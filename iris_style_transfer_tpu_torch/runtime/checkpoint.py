@@ -25,7 +25,7 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
-from ..models.port import flatten_pytree, from_jax, load_npz, to_jax
+from ..models.port import from_jax, load_npz, save_npz
 
 
 def _latest(ckpt_dir: str, stem: str) -> int | None:
@@ -39,7 +39,7 @@ def save_checkpoint(ckpt_dir: str, step: int, state: dict) -> str:
     """Save a tree of tensors and numbers at ``step`` in the JAX layout."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"step_{step:08d}.npz")
-    np.savez(path, **flatten_pytree(to_jax(state)))
+    save_npz(path, state)
     return path
 
 
@@ -56,6 +56,14 @@ def restore_checkpoint(ckpt_dir: str, step: int | None = None) -> tuple[int, dic
     return step, load_npz(os.path.join(ckpt_dir, f"step_{step:08d}.npz"))
 
 
+def restore_checkpoint_file(path: str) -> tuple[int, dict]:
+    """The exact checkpoint file named (as the reference loads the epoch
+    file passed on its command line), as (step, JAX-layout numpy tree); the
+    step is parsed from a ``step_<n>.npz`` name, else 0."""
+    m = re.search(r"step_(\d+)\.npz$", os.path.basename(path))
+    return (int(m.group(1)) if m else 0), load_npz(path)
+
+
 def restore_params(path: str | None, default=None, device="cpu"):
     if not path:
         return default
@@ -64,7 +72,7 @@ def restore_params(path: str | None, default=None, device="cpu"):
         if step is None:
             raise FileNotFoundError(f"checkpoint not found: {path}")
         path = os.path.join(path, f"step_{step:08d}.npz")
-    return from_jax(load_npz(path)["params"], device=device)
+    return from_jax(restore_checkpoint_file(path)[1]["params"], device=device)
 
 
 def save_state(ckpt_dir: str, step: int, state) -> str:

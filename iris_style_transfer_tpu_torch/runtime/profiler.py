@@ -1,13 +1,37 @@
-"""Wall-clock step counters.
+"""Profiler traces and wall-clock step counters.
 
-Counterpart of ``iris_style_transfer_tpu/runtime/profiler.py:StepTimer``.
-The caller synchronizes the device inside the timed block, so a step's
-time is the device's time and not the enqueue's.
+Counterpart of ``iris_style_transfer_tpu/runtime/profiler.py``: ``trace``
+records a torch.profiler trace where the JAX package takes a
+``jax.profiler`` one.  For :class:`StepTimer` the caller synchronizes the
+device inside the timed block, so a step's time is the device's time and
+not the enqueue's.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None):
+    """``with trace("/tmp/trace"):`` records the host's and, where CUDA is
+    available, the card's activity under torch.profiler and writes a Chrome
+    trace (``<pid>.<ns>.pt.trace.json``, for chrome://tracing or Perfetto)
+    into ``log_dir``; does nothing when ``log_dir`` is None."""
+    if log_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, f"{os.getpid()}.{time.time_ns()}.pt.trace.json"))
 
 
 class StepTimer:

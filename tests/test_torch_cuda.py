@@ -13,6 +13,7 @@ import torch
 
 from iris_style_transfer_tpu_torch.models import VGG19, EfficientNet
 from iris_style_transfer_tpu_torch.ops import blockwise_gram as bg
+from iris_style_transfer_tpu_torch.ops import connected as cc
 from iris_style_transfer_tpu_torch.ops import conv1 as c1
 from iris_style_transfer_tpu_torch.ops import depthwise as dw
 from iris_style_transfer_tpu_torch.ops import relu_pool as rp
@@ -310,3 +311,32 @@ def test_kernels_take_a_batch_past_65535(cuda, dtype):
         assert c1.within_tolerance(c1.conv1_fwd(xc, wt, bias), c1.conv1_fwd_plain(xc, wt, bias))[0]
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _serpentine(h, w):
+    m = torch.zeros((h, w), dtype=torch.bool)
+    m[0::2] = True
+    for k, y in enumerate(range(1, h, 2)):
+        m[y, w - 1 if k % 2 == 0 else 0] = True
+    return m
+
+
+@pytest.mark.parametrize("connectivity", [1, 2])
+def test_connected_components_kernel_is_bit_exact(cuda, connectivity):
+    """The union-find kernel against the plain labelling on the card:
+    seeded noise at three densities, a serpentine, all-false and all-true,
+    B = 1 and several; three launches a call."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    masks = [torch.rand((4, 37, 53), generator=gen, device="cuda") < d for d in (0.3, 0.45, 0.6)]
+    masks += [_serpentine(40, 64)[None].cuda(), torch.zeros((2, 9, 7), dtype=torch.bool, device="cuda"),
+              torch.ones((3, 16, 24), dtype=torch.bool, device="cuda"), masks[1][:1]]
+    for m in masks:
+        before = cc.LAUNCHES["connected_components"]
+        lab = cc.connected_components(m, connectivity)
+        assert cc.LAUNCHES["connected_components"] == before + cc.KERNELS_PER_CALL
+        assert lab.dtype == torch.int32 and lab.is_cuda
+        assert torch.equal(lab, cc.connected_components_plain(m, connectivity))
+    two = torch.zeros((1, 20, 24), dtype=torch.bool, device="cuda")
+    two[0, 2:6, 15:19] = True
+    two[0, 10:14, 3:7] = True
+    assert torch.equal(cc.largest_component(two, connectivity).cpu(), cc.largest_component(two.cpu(), connectivity))

@@ -21,8 +21,11 @@ import jax
 import jax.numpy as jnp
 
 from iris_style_transfer_tpu.models import GazeEstimator1 as JG1
+from iris_style_transfer_tpu.models import GazeEstimator1Complicated as JG1C
 from iris_style_transfer_tpu.models import GazeEstimator2 as JG2
 from iris_style_transfer_tpu.models import ResNet50 as JResNet50
+from iris_style_transfer_tpu.models import find_ellipse_features as j_find_ellipse_features
+from iris_style_transfer_tpu.models import find_eye_corners as j_find_eye_corners
 from iris_style_transfer_tpu.models import layers as jl
 from iris_style_transfer_tpu.models.port import save_npz
 from iris_style_transfer_tpu.ops import ellipse as jellipse
@@ -30,7 +33,9 @@ from iris_style_transfer_tpu.ops import image as jimg
 from iris_style_transfer_tpu.ops import metrics as jmetrics
 
 from iris_style_transfer_tpu_torch.data.synthetic import synthetic_eye_batch
-from iris_style_transfer_tpu_torch.models import GazeEstimator1, GazeEstimator2, ResNet50, load_pretrained
+from iris_style_transfer_tpu_torch.models import (GazeEstimator1, GazeEstimator1_complicated, GazeEstimator1Complicated,
+                                                   GazeEstimator2, ResNet50, find_ellipse_features, find_eye_corners,
+                                                   load_pretrained)
 from iris_style_transfer_tpu_torch.models import layers as tl
 from iris_style_transfer_tpu_torch.models.port import from_jax
 from iris_style_transfer_tpu_torch.models.pretrained import pretrained_path
@@ -125,8 +130,61 @@ def test_fit_ellipse_and_eye_corners_match_jax():
     np.testing.assert_allclose(got[0, :4], [40, 28, 50, 24], rtol=0.02)  # full axes 2a, 2b
     got_c = tellipse.eye_corners(torch.from_numpy(masks)).numpy()
     np.testing.assert_array_equal(got_c, np.asarray(jax.vmap(jellipse.eye_corners)(jnp.asarray(masks))))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tellipse.fit_ellipse_mask(torch.from_numpy(masks), select_largest=True)
+    # select_largest: the ellipse, plus a second, smaller blob that it drops
+    two = masks.copy()
+    two[0] |= ((xx - 72) / 5.0) ** 2 + ((yy - 52) / 4.0) ** 2 <= 1
+    got_l = tellipse.fit_ellipse_mask(torch.from_numpy(two), select_largest=True).numpy()
+    want_l = np.asarray(jax.vmap(jellipse.fit_ellipse_mask, (0, None))(jnp.asarray(two), True))
+    np.testing.assert_allclose(got_l, want_l, rtol=1e-5, atol=1e-3 * 80)
+    np.testing.assert_allclose(got_l[0], got[0], rtol=1e-6)  # the small blob is ignored
+    assert not np.allclose(tellipse.fit_ellipse_mask(torch.from_numpy(two))[0].numpy(), got[0])
+
+
+def test_find_ellipse_features_and_eye_corners_match_jax():
+    """The one-mask host helpers: Python numbers as the JAX helpers give
+    them (floats within the ellipse tolerance above, ints exact), all None
+    on an invalid fit or an empty mask; numpy and tensor inputs alike."""
+    yy, xx = np.mgrid[0:60, 0:80]
+    ell = ((xx - 40) / 25.0) ** 2 + ((yy - 28) / 12.0) ** 2 <= 1
+    two = ell | (((xx - 72) / 5.0) ** 2 + ((yy - 52) / 4.0) ** 2 <= 1)
+    for mask in (ell, two):
+        for largest in (True, False):
+            got = find_ellipse_features(mask, largest)
+            want = j_find_ellipse_features(mask, largest)
+            assert all(isinstance(v, float) for v in got)
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3 * 80)
+        np.testing.assert_allclose(find_ellipse_features(torch.from_numpy(mask)), find_ellipse_features(mask))
+    np.testing.assert_allclose(find_ellipse_features(two), find_ellipse_features(ell), rtol=1e-6)  # default: largest
+    tiny = np.zeros((60, 80), bool)
+    tiny[3, 3:6] = True  # 3 pixels: under min_pixels
+    assert find_ellipse_features(tiny) == j_find_ellipse_features(tiny) == (None,) * 5
+    got = find_eye_corners(two)
+    assert got == j_find_eye_corners(two) and all(isinstance(v, int) for v in got)
+    assert find_eye_corners(np.zeros((60, 80), bool)) == j_find_eye_corners(np.zeros((60, 80), bool)) == (None,) * 4
+
+
+def test_gaze_estimator1_complicated_matches_jax():
+    """Eval mode, float32, (2, 48, 64) segmaps with their landmarks given
+    and extracted; the same params through ``from_jax``; outputs within
+    rtol 1e-3 of their scale (float32 convs summed in another order)."""
+    rng = np.random.default_rng(8)
+    jp = _fill(jax.eval_shape(JG1C.init, jax.random.PRNGKey(0)), rng)
+    tp = from_jax(jp)
+    assert GazeEstimator1_complicated is GazeEstimator1Complicated
+    segs = synthetic_eye_batch(2, 48, 64, seed=9)[1]
+    lm = rng.standard_normal((2, 19)).astype(np.float32) * 10
+    want = np.asarray(JG1C.apply(jp, jnp.asarray(segs), jnp.asarray(lm)))
+    got = GazeEstimator1Complicated.apply(tp, torch.from_numpy(segs), torch.from_numpy(lm))
+    assert got.shape == (2, 3) and got.dtype == torch.float32
+    _close(got.numpy(), want)
+    want = np.asarray(JG1C.apply(jp, jnp.asarray(segs), extract_feature=True))
+    _close(GazeEstimator1Complicated.apply(tp, torch.from_numpy(segs), extract_feature=True).numpy(), want)
+    tree = GazeEstimator1Complicated.init(torch.Generator().manual_seed(0))
+    shapes = jax.tree_util.tree_map(np.shape, from_jax(jax.tree_util.tree_map(np.asarray, JG1C.init(jax.random.PRNGKey(0)))))
+    assert jax.tree_util.tree_map(lambda t: tuple(t.shape), tree) == jax.tree_util.tree_map(tuple, shapes)
+    drop = GazeEstimator1Complicated.apply(tp, torch.from_numpy(segs), torch.from_numpy(lm), train=True,
+                                           gen=torch.Generator().manual_seed(1))
+    assert not torch.allclose(drop, got)  # dropout on in training
 
 
 def test_gaze_estimator1_matches_jax():

@@ -152,8 +152,37 @@ def test_mask_and_crop_iris_matches_jax():
     np.testing.assert_array_equal(bb.numpy(), np.asarray(bb_j))
     np.testing.assert_allclose(ir.numpy(), np.asarray(ir_j), atol=1e-5)
     assert m.sum(dim=(1, 2, 3)).min() > 100
-    with pytest.raises(NotImplementedError, match="connected"):
-        tiris.mask_and_crop_iris(torch.from_numpy(imgs), RITnet.pretrained(), use_area_opening=True)
+    # with area opening (area 500): the same agreement, bboxes exact
+    ir_j, mo_j, bb_j = jiris.mask_and_crop_iris(jnp.asarray(imgs), JRITnet.pretrained(), out_size=(32, 32),
+                                                use_area_opening=True)
+    ir, mo, bb = tiris.mask_and_crop_iris(torch.from_numpy(imgs), RITnet.pretrained(), out_size=(32, 32),
+                                          use_area_opening=True)
+    assert (mo.numpy() == np.asarray(mo_j)).mean() >= 0.995
+    np.testing.assert_array_equal(bb.numpy(), np.asarray(bb_j))
+    assert not (mo & ~m).any() and mo.sum() > 100  # opening only removes
+
+
+@pytest.mark.parametrize("connectivity", [1, 2])
+def test_extract_iris_batch_area_opening_matches_jax(slice_inputs, connectivity):
+    """``open_area`` removes the iris mask's small components before the
+    crop: masks and bboxes exact, crops 1e-5.  A planted 4-pixel iris
+    fragment, ringed by background, goes; the iris stays."""
+    imgs, segs, _, _, _, _ = slice_inputs
+    segs = segs.copy()
+    segs[:, 0:5, 0:5] = 0  # background around ...
+    segs[:, 1:3, 1:3] = 2  # ... a 4-pixel fragment in the corner
+    imgs = imgs.copy()
+    imgs[:, 1:3, 1:3] = 0.1  # below the glint threshold
+    want = jiris.extract_iris_batch(jnp.asarray(imgs), jnp.asarray(segs), out_size=(32, 32), open_area=20,
+                                    connectivity=connectivity)
+    got = tiris.extract_iris_batch(torch.from_numpy(imgs), torch.from_numpy(segs), out_size=(32, 32),
+                                   open_area=20, connectivity=connectivity)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), atol=1e-5)
+    plain = tiris.extract_iris_batch(torch.from_numpy(imgs), torch.from_numpy(segs), out_size=(32, 32))
+    assert plain[1][:, 1:3, 1:3].all() and not got[1][:, 1:3, 1:3].any()
+    assert got[1].sum() > 0 and (got[1] == plain[1]).float().mean() > 0.99
 
 
 def test_make_ist_fn_matches_jax(slice_inputs):
@@ -179,7 +208,7 @@ def test_port_imports_no_jax():
         "from iris_style_transfer_tpu_torch.demos import iris_nst_demo, nst_demo\n"
         "from iris_style_transfer_tpu_torch.data import fake_openeds, native_loader, openeds2020\n"
         "from iris_style_transfer_tpu_torch.tools import replicate_rotation, replicate_synthetic\n"
-        "from iris_style_transfer_tpu_torch.tools import replicate_synthetic_gaze\n"
+        "from iris_style_transfer_tpu_torch.tools import port_weights, replicate_synthetic_gaze\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'iris_style_transfer_tpu.'))]\n"
         "assert not bad and 'iris_style_transfer_tpu' not in sys.modules, bad\n"
         "assert not [m for m in sys.modules if m == 'tools' or m.startswith('tools.')]\n"
