@@ -98,6 +98,20 @@ exit:
                them; then one B7 training step at bs 2 split into the
                depthwise forward kernel, the plain f32 depthwise backward
                and the rest, in device time, beside its wall time.
+ 12. parallel — the mains on ranks of a process group (``parallel/``),
+               spawned by ``run_ranks``, cuDNN deterministic: on an NCCL
+               group of one, the 2019 main (bs 64, stats taps on) bit-equal
+               to one process, the NST loop under the sync check, closures/s
+               without and with the group; on two gloo ranks sharing the
+               card (NCCL refuses two ranks on one card), the 2019 and 2020
+               mains, the classifier trainer with ``--model_parallel 2`` and
+               the gaze trainer against one process, each rank's launches as
+               derived for its half of the batch.
+
+``python3 chip_smoke.py --cards N`` (N cards, N even) runs phases 1-2 and
+then ``phase_cards`` alone: the IST mains and the classifier trainer (heads
+split over 2) on N NCCL ranks, one a card, against one card, and the NST
+loop at a joint bs 64; the last two lines as below.
 
 In every main-path phase conv1 launches exactly once per VGG19 pass.
 
@@ -1343,7 +1357,7 @@ def phase_train2019(card: str):
                      f"+ {test_batches} test batch(es) on {card}: {sps:.3f} train steps/s = {sps * bs:.1f} "
                      f"images/s; peak memory {peak:.2f} GB; launches {launches}; test/c1/accu "
                      f"{log['test/c1/accu']:.4f}, test/c2/accu {log['test/c2/accu']:.4f}; main {wall:.1f} s")
-                out[name] = {"steps_per_sec": sps, "launches": launches, "peak_gb": peak}
+                out[name] = {"steps_per_sec": sps, "launches": launches, "peak_gb": peak, "log": log}
 
             ckpt = os.path.join(tmp, "saved", "checkpoints", "iris_classification")
             if not os.path.exists(os.path.join(ckpt, "step_00000002.npz")):
@@ -1394,7 +1408,7 @@ def phase_train_gaze(card: str):
                 _log("train_gaze", f"gaze_estimation -estimator {est} -bs 32 -E 1 (3 lrs x 3 steps) on {card}: "
                      f"{sps:.3f} train steps/s of the last lr = {sps * 32:.1f} frames/s; valid/degree_distance "
                      f"{log['valid/degree_distance']:.2f}; peak memory {peak:.2f} GB; main {wall:.1f} s")
-                out[f"estimator{est}"] = {"steps_per_sec": sps, "peak_gb": peak}
+                out[f"estimator{est}"] = {"steps_per_sec": sps, "peak_gb": peak, "log": log}
         finally:
             os.chdir(cwd)
 
@@ -1859,6 +1873,364 @@ def phase_replicate(card: str) -> dict:
     return out
 
 
+# phase 12: the mains on ranks of a process group.  The timing keys are the
+# ranks' own clocks, and are not compared.
+TIMING_KEYS = ("per_min", "per_sec")
+# the IST mains' NST closures before L-BFGS's first curvature pair: one
+# process's and the ranks' style losses agree to 1e-5 there, and part after
+# it (see phase_parallel)
+AGREEING_CLOSURES = 3
+PARALLEL_NST_CLOSURES = 100  # each of the four NST loops timed in turns
+PARALLEL_JOIN_S = 600  # a spawned run that outlasts this fails the phase
+IST_RUNS = {  # the main phases' arguments, and the key of their results
+    "ist2019": (["-bs", "64", "--nst_epochs", str(MAIN_CLOSURES), "--stats_taps", "on"], ("test/", 1.0, MAIN_CLOSURES)),
+    "ist2020": (["-bs", "128", "--nst_epochs", str(MAIN_CLOSURES)], ("validation/", 1.0, MAIN_CLOSURES)),
+}
+CLASSIFIER_ARGS = ["-bs", "64", "-E", "2", "-SP", "-1"]  # phase_train2019's frozen run, without its checkpoint
+
+
+def _counters():
+    from iris_style_transfer_tpu_torch.ops import conv1 as c1
+    from iris_style_transfer_tpu_torch.ops import depthwise as dw
+    from iris_style_transfer_tpu_torch.ops import relu_pool as rp
+    from iris_style_transfer_tpu_torch.ops import relu_stats as rs
+
+    return rp.LAUNCHES, rs.LAUNCHES, c1.LAUNCHES, dw.LAUNCHES
+
+
+def _nodata_main(wl, argv: list[str], where: str, arrays: bool = True) -> dict:
+    """``wl.main(argv)`` on the card in ``where`` (made if missing; ranks
+    share it) on the twin, with cuDNN's deterministic algorithms; every
+    count set to 0 just before and read just after; each NST call's loss
+    histories captured.  Returns {"results", "launches", "hists", "arrays"
+    (with ``arrays``, every ``.npy`` the run wrote, by name)}."""
+    import numpy as np
+    import torch
+
+    os.makedirs(where, exist_ok=True)
+    real, hists = getattr(wl, "cached_nst_program", None), []
+
+    def capturing(*args):
+        fn = real(*args)
+
+        def run(*a, **kw):
+            res = fn(*a, **kw)
+            hists.append((res.c_loss_hist.cpu(), res.s_loss_hist.cpu()))
+            return res
+
+        return run
+
+    cwd, det = os.getcwd(), torch.backends.cudnn.deterministic
+    os.chdir(where)
+    torch.backends.cudnn.deterministic = True
+    if real is not None:
+        wl.cached_nst_program = capturing
+    try:
+        _reset(_counters())
+        results = wl.main([*argv, "--data_dir", os.path.join(where, "no_data"), "--device", "cuda"])
+        torch.cuda.synchronize()
+        launches = {k: v for counts in _counters() for k, v in counts.items()}
+        arrays = {f: np.load(os.path.join(root, f)) for root, _, files in os.walk(where) if arrays for f in files
+                  if f.endswith(".npy")}
+    finally:
+        if real is not None:
+            wl.cached_nst_program = real
+        torch.backends.cudnn.deterministic = det
+        os.chdir(cwd)
+    return {"results": results, "launches": launches, "hists": hists, "arrays": arrays}
+
+
+def _rank_nccl_world1(argv: list[str], tmp: str) -> dict:
+    """Rank 0 of an NCCL group of one, on cuda:0: the 2019 main as the
+    one-process run of :func:`phase_parallel`; the stats-tap NST loop at bs
+    64 on a mesh of the group under ``set_sync_debug_mode("error")``; then
+    the loop without and with the group, in turns, for closures/s."""
+    import torch.distributed as dist
+    from iris_style_transfer_tpu_torch.parallel import make_mesh
+    from iris_style_transfer_tpu_torch.workloads import ist_openeds2019
+
+    run = _nodata_main(ist_openeds2019, argv, os.path.join(tmp, "nccl"))
+    mesh = make_mesh()
+    rates: dict = {"plain": [], "group": []}
+    for kind in ("plain", "group", "group", "plain"):
+        kw = {"stats_taps": True, **({"mesh": mesh} if kind == "group" else {})}
+        rates[kind].append(_nst_loop(kw, (64, 3, 224, 224), PARALLEL_NST_CLOSURES, SEED + 1)[0])
+    return {**run, "rates": rates, "mesh": mesh.shape, "backend": dist.get_backend()}
+
+
+def _rank_gloo_mains(tmp: str) -> list:
+    """One of two gloo ranks, both on cuda:0: the 2019 main (stats taps on),
+    the 2020 main, the classifier trainer with ``--model_parallel 2`` and
+    the gaze trainer (estimator 1), each with ``--n_devices 2`` at the
+    one-process phases' arguments, in directories both ranks share.
+    Returns rank 0's runs and every rank's launches.  gloo copies CUDA
+    tensors through the host, so these runs hold no sync check."""
+    import torch.distributed as dist
+    from iris_style_transfer_tpu_torch.workloads import gaze_estimation, iris_classification, ist_openeds2019
+    from iris_style_transfer_tpu_torch.workloads import ist_openeds2020
+
+    _train_twin(iris_classification)
+    runs = {
+        "ist2019": (ist_openeds2019, IST_RUNS["ist2019"][0]),
+        "ist2020": (ist_openeds2020, IST_RUNS["ist2020"][0]),
+        "classifier": (iris_classification, [*CLASSIFIER_ARGS, "--model_parallel", "2"]),
+        "gaze": (gaze_estimation, ["-estimator", "1", "-bs", "32", "-E", "1", "-SP", "1"]),
+    }
+    out = {}
+    for name, (wl, argv) in runs.items():
+        t0 = time.perf_counter()
+        out[name] = _nodata_main(wl, [*argv, "--n_devices", "2"], os.path.join(tmp, name), arrays=False)
+        out[name]["wall"] = time.perf_counter() - t0
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, {k: v["launches"] for k, v in out.items()})
+    return [out, every]
+
+
+def _compare_metrics(where: str, got: dict, want: dict, tol) -> float:
+    """Every metric of ``want`` present in ``got``, each within ``tol(key)``
+    of it; a key whose ``tol`` is None, and the timing keys, only finite.
+    Returns the largest deviation, for the log."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"{where}: keys differ: {sorted(got.keys() ^ want.keys())}")
+    worst, bad = 0.0, []
+    for k, v in want.items():
+        t = None if k.endswith(TIMING_KEYS) else tol(k)
+        if t is None:
+            if not math.isfinite(got[k]):
+                bad.append(f"{k} = {got[k]}")
+            continue
+        if not abs(got[k] - v) <= t:
+            bad.append(f"{k} = {got[k]} on the ranks, {v} in one process (atol {t:g})")
+        worst = max(worst, abs(got[k] - v))
+    if bad:
+        raise AssertionError(f"{where}: " + "; ".join(bad))
+    return worst
+
+
+def _trainer_tol(key: str) -> float:
+    """The trainers' metrics: losses and distances within 1e-3; the metrics
+    of ranks and argmaxes (auc, accu, prec, recl, f1, mcc) within 0.05: a
+    few crops flip between logits that a batch split moves by bf16 rounding
+    (another conv algorithm for another batch size), and the untrained
+    heads' logits nearly tie.  On the CPU in float32 the split equals one
+    process in every metric."""
+    return 0.05 if key.rsplit("/", 1)[-1] in ("auc", "accu", "prec", "recl", "f1", "mcc") else 1e-3
+
+
+def _dw_launches(rows: int, chunk: int) -> int:
+    """The depthwise kernel's launches in one 2020-main batch of ``rows``
+    frames a rank: B7 on the style iris, then pre and post per chunk."""
+    return 102 * (1 + 2 * math.ceil(rows / chunk))
+
+
+def _train_twin(wl) -> None:
+    """phase_train2019's twin (8 users x 40 frames) for ``wl``, the
+    classifier trainer's module."""
+    from iris_style_transfer_tpu_torch.data import synthetic_openeds2019
+
+    twins: dict = {}
+    wl.synthetic_openeds2019 = lambda n_per_user=8, num_users=8, seed=0: twins.setdefault(
+        seed, synthetic_openeds2019(n_per_user=TRAIN_FRAMES_PER_USER, num_users=TRAIN_USERS, seed=seed))
+
+
+def _check_ranks(phase: str, where: str, name: str, run: dict, every: list, want_log: dict, want_launches: dict,
+                 want_hists: list | None) -> None:
+    """Rank 0's ``run`` of main ``name`` against one process's log (and, for
+    an IST main, its NST histories), as :func:`phase_parallel` holds them;
+    every rank's launches (``every``) against ``want_launches``."""
+    import torch
+
+    key = IST_RUNS[name][1] if name in IST_RUNS else None
+    got_log = run["results"][key] if key else run["results"]
+    final = {}
+    if key:
+        worst = _compare_metrics(where, got_log, want_log, lambda k: None if "/post/" in k or "_loss" in k else 1e-4)
+        if len(run["hists"]) != len(want_hists):
+            raise AssertionError(f"{where}: {len(run['hists'])} NST calls, {len(want_hists)} in one process")
+        k = AGREEING_CLOSURES
+        for (c2, s2), (c1, s1) in zip(run["hists"], want_hists):
+            agree = torch.allclose(c2[:k], c1[:k], rtol=5e-2, atol=1e-12) and torch.allclose(s2[:k], s1[:k], rtol=1e-4)
+            if not agree:
+                raise AssertionError(f"{where}: the first {k} closures' losses part: c {c2[:k].tolist()} / "
+                                     f"{c1[:k].tolist()}, s {s2[:k].tolist()} / {s1[:k].tolist()}")
+        rate = next(k for k in want_log if k.endswith("stylized_images_per_min"))
+        pipe = next(k for k in want_log if k.endswith("pipeline_images_per_min"))
+        final = {"c": (run["hists"][0][0][-1].item(), want_hists[0][0][-1].item()),
+                 "s": (run["hists"][0][1][-1].item(), want_hists[0][1][-1].item()),
+                 "stylized_images_per_min": (got_log[rate], want_log[rate]),
+                 "pipeline_images_per_min": (got_log[pipe], want_log[pipe])}
+    else:
+        worst = _compare_metrics(where, got_log, want_log, _trainer_tol)
+        final = {"train/steps_per_sec": (got_log["train/steps_per_sec"], want_log["train/steps_per_sec"])}
+    for rank, counts in enumerate(every):
+        have = {k: counts[name][k] for k in want_launches}
+        if have != want_launches:
+            raise AssertionError(f"{where}: rank {rank} of {len(every)} launched {counts[name]}; {want_launches} "
+                                 "expected")
+    _log(phase, f"{where}: metrics within tolerance of one process (largest deviation {worst:.3g}); ranks / one "
+         f"process: {final}; each rank's launches {every[0][name]}; {run['wall']:.1f} s")
+
+
+def phase_parallel(card: str, classifier: dict, gaze_log: dict) -> None:
+    """The mains on ranks of a process group (``parallel/mesh.py``), every
+    run with cuDNN's deterministic algorithms.
+
+    NCCL, world size 1 (one spawned rank on cuda:0): the 2019 main at bs 64,
+    MAIN_CLOSURES closures, stats taps on, bit-equal in every metric but
+    its clocks, in every array and in its launches to the same main run in
+    this process; the NST loop on the group under
+    ``set_sync_debug_mode("error")``; closures/s without and with the group.
+
+    gloo, world size 2, both ranks on cuda:0 (NCCL refuses two ranks on one
+    card, so NCCL at two ranks and more is not run here): the 2019 and 2020
+    mains against the same mains in this process, the classifier trainer
+    with ``--model_parallel 2`` against phase_train2019's frozen run
+    (``classifier``: launches and log) and the gaze trainer against
+    phase_train_gaze's estimator-1 log.  The IST mains: every metric before
+    the NST within 1e-4; over the first AGREEING_CLOSURES closures the style
+    loss to rtol 1e-4 and the content loss to rtol 5e-2 (after the first,
+    tiny step it is the squared distance of two nearly equal bf16 feature
+    maps, rounding noise that another conv algorithm for another batch size
+    moves by a few percent; a content loss not normalized over the whole
+    batch, or a first step from one rank's |g|_1, would be off by the rank
+    count or its square).  Then L-BFGS takes its first curvature pair from
+    two nearly equal gradients of the twin's crops: the pair is rounding
+    noise, and a batch split, which sums in another order, sends the loop
+    on another trajectory; the NST losses and the post-NST metrics are then
+    only required finite.  The trainers as :func:`_trainer_tol` holds them.
+    Each rank's launches as derived for its half of the batch."""
+    import functools
+
+    import numpy as np
+    import torch
+    from iris_style_transfer_tpu_torch.parallel import run_ranks
+    from iris_style_transfer_tpu_torch.workloads import ist_openeds2019, ist_openeds2020
+    from iris_style_transfer_tpu_torch.workloads.ist_openeds2020 import SEG_CHUNK
+
+    t_phase = time.perf_counter()
+    argv = IST_RUNS["ist2019"][0]
+    with tempfile.TemporaryDirectory() as tmp:
+        one = {"ist2019": _nodata_main(ist_openeds2019, argv, os.path.join(tmp, "plain2019")),
+               "ist2020": _nodata_main(ist_openeds2020, IST_RUNS["ist2020"][0], os.path.join(tmp, "plain2020"))}
+        base = one["ist2019"]
+        got = run_ranks(functools.partial(_rank_nccl_world1, argv, tmp), 1, devices=["cuda:0"], backend="nccl",
+                        timeout=PARALLEL_JOIN_S)
+        if got["mesh"] != {"data": 1, "model": 1} or got["backend"] != "nccl":
+            raise AssertionError(f"the group of one formed the mesh {got['mesh']} on {got['backend']}")
+        log, log1 = (r["results"][IST_RUNS["ist2019"][1]] for r in (base, got))
+        differ = [k for k in log if not k.endswith(TIMING_KEYS) and log1[k] != log[k]]
+        differ += [n for n in base["arrays"] if not np.array_equal(got["arrays"].get(n), base["arrays"][n])]
+        differ += [f"NST call {i}" for i, (a, b) in enumerate(zip(base["hists"], got["hists"]))
+                   if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))]
+        if differ or got["arrays"].keys() != base["arrays"].keys() or got["launches"] != base["launches"]:
+            raise AssertionError(f"the 2019 main on an NCCL group of one differs from one process in {differ}; "
+                                 f"launches {got['launches']} against {base['launches']}")
+        r = {k: float(np.mean(v)) for k, v in got["rates"].items()}
+        _log("parallel", f"NCCL world size 1: the 2019 main (bs 64, {MAIN_CLOSURES} closures, stats taps on) "
+             f"bit-equal to one process in {len(log)} metrics, {len(base['arrays'])} arrays and the NST "
+             f"histories, launches {base['launches']}; NST (64,3,224,224) stats taps, {PARALLEL_NST_CLOSURES} "
+             f"closures, no host sync on the group: {r['plain']:.2f} closures/s without the group, "
+             f"{r['group']:.2f} with it ({100 * (r['group'] / r['plain'] - 1):+.1f}%; runs in turns "
+             f"{got['rates']}) on {card}")
+
+        t0 = time.perf_counter()
+        two, every = run_ranks(functools.partial(_rank_gloo_mains, tmp), 2, devices=["cuda:0", "cuda:0"],
+                               backend="gloo", timeout=PARALLEL_JOIN_S)
+        wall = time.perf_counter() - t0
+    for name in ("ist2019", "ist2020", "classifier", "gaze"):
+        if name in IST_RUNS:
+            want = dict(one[name]["launches"])
+            if name == "ist2020":
+                want["dw_conv_bn_silu"] = _dw_launches(128 // 2, SEG_CHUNK)
+            base = (one[name]["results"][IST_RUNS[name][1]], want, one[name]["hists"])
+        elif name == "classifier":
+            base = (classifier["log"], classifier["launches"], None)
+        else:  # estimator 1 on the twin's landmarks: none of the counted kernels
+            base = (gaze_log, {k: 0 for k in every[0]["gaze"]}, None)
+        _check_ranks("parallel", f"gloo world size 2 on one card, {name}", name, two[name], every, *base)
+    _log("parallel", f"phase took {time.perf_counter() - t_phase:.1f} s (the two-rank runs {wall:.1f} s) on {card}")
+
+
+def _rank_cards(tmp: str, n: int) -> list:
+    """One of ``n`` NCCL ranks, rank r on cuda:r: the 2019 and 2020 mains
+    and the classifier trainer over data (n/2) x model (2), each with
+    ``--n_devices n`` at the one-card phases' arguments; then the stats-tap
+    NST loop at a joint bs 64 (64/n a rank) under the sync check.  Returns
+    rank 0's runs and closures/s, and every rank's launches."""
+    import torch.distributed as dist
+    from iris_style_transfer_tpu_torch.parallel import make_mesh
+    from iris_style_transfer_tpu_torch.workloads import iris_classification, ist_openeds2019, ist_openeds2020
+
+    _train_twin(iris_classification)
+    runs = {"ist2019": (ist_openeds2019, IST_RUNS["ist2019"][0]), "ist2020": (ist_openeds2020, IST_RUNS["ist2020"][0]),
+            "classifier": (iris_classification, [*CLASSIFIER_ARGS, "--model_parallel", "2"])}
+    out = {}
+    for name, (wl, argv) in runs.items():
+        t0 = time.perf_counter()
+        out[name] = _nodata_main(wl, [*argv, "--n_devices", str(n)], os.path.join(tmp, name), arrays=False)
+        out[name]["wall"] = time.perf_counter() - t0
+    rate = _nst_loop({"stats_taps": True, "mesh": make_mesh()}, (64 // n, 3, 224, 224), PARALLEL_NST_CLOSURES,
+                     SEED + 1)[0]
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, {k: v["launches"] for k, v in out.items()})
+    return [out, every, rate]
+
+
+def phase_cards(card: str, n: int) -> None:
+    """``python3 chip_smoke.py --cards N`` on a host of N cards (N even):
+    NCCL across the cards, which the one-card run cannot reach.  The 2019
+    and 2020 mains and the classifier trainer (its heads split over 2 of
+    the ranks) on N ranks, against the same runs on one card in this
+    process, as :func:`phase_parallel` holds them; each rank's launches
+    as derived for its block; stylized and pipeline images/min, train
+    steps/s and the NST loop's closures/s at a joint bs 64 beside one
+    card's."""
+    import functools
+
+    from iris_style_transfer_tpu_torch.parallel import run_ranks
+    from iris_style_transfer_tpu_torch.workloads import iris_classification, ist_openeds2019, ist_openeds2020
+    from iris_style_transfer_tpu_torch.workloads.ist_openeds2020 import SEG_CHUNK
+
+    t_phase = time.perf_counter()
+    real_twin = iris_classification.synthetic_openeds2019
+    with tempfile.TemporaryDirectory() as tmp:
+        _train_twin(iris_classification)
+        try:
+            one = {"ist2019": _nodata_main(ist_openeds2019, IST_RUNS["ist2019"][0], os.path.join(tmp, "one2019")),
+                   "ist2020": _nodata_main(ist_openeds2020, IST_RUNS["ist2020"][0], os.path.join(tmp, "one2020")),
+                   "classifier": _nodata_main(iris_classification, CLASSIFIER_ARGS, os.path.join(tmp, "onecls"))}
+        finally:
+            iris_classification.synthetic_openeds2019 = real_twin
+        rate1 = _nst_loop({"stats_taps": True}, (64, 3, 224, 224), PARALLEL_NST_CLOSURES, SEED + 1)[0]
+        out, every, rate = run_ranks(functools.partial(_rank_cards, tmp, n), n, backend="nccl",
+                                     timeout=PARALLEL_JOIN_S)
+    for name in ("ist2019", "ist2020", "classifier"):
+        want = dict(one[name]["launches"])
+        if name == "ist2020":
+            want["dw_conv_bn_silu"] = _dw_launches(128 // n, SEG_CHUNK)
+        log = one[name]["results"][IST_RUNS[name][1]] if name in IST_RUNS else one[name]["results"]
+        _check_ranks("cards", f"NCCL, {n} cards, {name}", name, out[name], every, log, want, one[name]["hists"])
+    _log("cards", f"NST (64,3,224,224) stats taps, {PARALLEL_NST_CLOSURES} closures, no host sync: {rate:.2f} "
+         f"closures/s on {n} cards ({64 // n} images a card), {rate1:.2f} on one card ({rate / rate1:.2f}x) on {card}")
+    _log("cards", f"phase took {time.perf_counter() - t_phase:.1f} s on {n} x {card}")
+
+
+def main_cards(n: int) -> int:
+    """The entry of ``--cards N``: the device and build phases, then
+    :func:`phase_cards`; the same last lines as :func:`main`."""
+    smi = phase_device()
+    import torch
+
+    if torch.cuda.device_count() < n or n % 2:
+        raise SystemExit(f"--cards {n} needs an even number of cards; this host has {torch.cuda.device_count()}")
+    phase_build()
+    phase_cards(smi.replace(",", " |"), n)
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1884,9 +2256,10 @@ def main() -> int:
     launches2020_st = phase_main2020(card, kd["b7_apply_ms"], stats_taps=True)
     gram_launches = phase_demos(card)
     train = phase_train2019(card)
-    phase_train_gaze(card)
+    gaze = phase_train_gaze(card)
     phase_real_data(card)
     phase_replicate(card)
+    phase_parallel(card, train["frozen"], gaze["estimator1"]["log"])
     src = "iris_style_transfer_tpu_torch/ops/csrc/"
     stats_fwd = launches_st["relu_stats_fwd"] + launches2020_st["relu_stats_fwd"]
     stats_bwd = launches_st["relu_stats_bwd"] + launches2020_st["relu_stats_bwd"]
@@ -1923,4 +2296,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main_cards(int(sys.argv[2])) if sys.argv[1:2] == ["--cards"] else main())

@@ -1,5 +1,6 @@
 """iris_style_transfer_tpu_torch — the PyTorch + CUDA port of
-``iris_style_transfer_tpu`` for one NVIDIA H100.
+``iris_style_transfer_tpu`` for NVIDIA H100s: one card, or a rank per card
+with ``torch.distributed``.
 
 The JAX package stays the reference; each subpackage here mirrors the one
 at the same path there:
@@ -16,9 +17,13 @@ at the same path there:
   * ``data``       — the synthetic OpenEDS twin and IST dataset building.
   * ``runtime``    — config, JSONL metric logging, checkpoint restore,
                      step timing.
+  * ``parallel``   — the ``(data, model)`` mesh of ranks: batch blocks,
+                     parameter broadcast and tensor-parallel splits, the
+                     collectives, and ``run_ranks`` to spawn a host's ranks.
   * ``utils``      — seeding, output directories, sweep markers.
-  * ``workloads``  — ``ist_openeds2019`` (recognition privacy) and
-                     ``ist_openeds2020`` (gaze preservation).
+  * ``workloads``  — ``ist_openeds2019`` (recognition privacy),
+                     ``ist_openeds2020`` (gaze preservation) and the two
+                     trainers, each data-parallel over ``parallel``.
 
 No module imports JAX.
 """

@@ -20,6 +20,8 @@ from typing import Iterator, Sequence
 import numpy as np
 import torch
 
+from ..parallel.mesh import shard_batch
+
 
 def _take(a, idx: np.ndarray):
     if isinstance(a, torch.Tensor):
@@ -105,12 +107,16 @@ def background(iterator, size: int = 2):
     return _background(iterator, size, lambda item: item)
 
 
-def prefetch_to_device(iterator, device, size: int = 2) -> Iterator[tuple]:
+def prefetch_to_device(iterator, device, size: int = 2, mesh=None) -> Iterator[tuple]:
     """Yield the batches of a host iterator as tensors on ``device``, staged
     ``size`` batches ahead on a thread.  On a CUDA device each array is
     pinned and copied with ``non_blocking=True`` on a side stream; the
-    consumer's stream waits for that copy before it uses the batch."""
+    consumer's stream waits for that copy before it uses the batch.  With a
+    ``mesh`` (``parallel/mesh.py``) the iterator yields global batches, the
+    same on every rank, and each rank stages its block of them."""
     device = torch.device(device)
+    if mesh is not None:
+        iterator = (shard_batch(mesh, b) for b in iterator)
     if device.type != "cuda":
         yield from _background(iterator, size, lambda b: tuple(torch.as_tensor(a).to(device) for a in b))
         return

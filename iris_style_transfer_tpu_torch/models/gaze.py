@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.ellipse import extract_eye_landmarks, eye_corners, fit_ellipse_mask
+from ..parallel.mesh import activation_block
 from . import layers as L
 from .resnet import ResNet50
 
@@ -63,9 +64,13 @@ def _mlp_init(gen, din, hidden, dout, device, dtype):
     }
 
 
-def _mlp_apply(params, x, train: bool = False, gen: torch.Generator | None = None):
-    x = L.dropout(torch.relu(L.linear(x, params["fc0"])), 0.5, gen, train)
-    x = L.dropout(torch.relu(L.linear(x, params["fc1"])), 0.5, gen, train)
+def _mlp_apply(params, x, train: bool = False, gen: torch.Generator | None = None, mesh=None):
+    """With ``mesh``, ``x`` is this rank's block of the batch, and each
+    dropout mask is the whole batch's, cut to the block."""
+    x = torch.relu(L.linear(x, params["fc0"]))
+    x = L.block_dropout(x, 0.5, gen, train, activation_block(mesh, x))
+    x = torch.relu(L.linear(x, params["fc1"]))
+    x = L.block_dropout(x, 0.5, gen, train, activation_block(mesh, x))
     return L.linear(x, params["fc2"])
 
 
@@ -79,12 +84,12 @@ class GazeEstimator1:
 
     @staticmethod
     def apply(params: dict, x: torch.Tensor, extract_feature: bool = False, train: bool = False,
-              gen: torch.Generator | None = None) -> torch.Tensor:
+              gen: torch.Generator | None = None, mesh=None) -> torch.Tensor:
         """x: (B, 19) landmarks, or (B, H, W) segmentation maps when
         ``extract_feature``; returns (B, 3) unit gaze vectors."""
         if extract_feature:
             x = extract_eye_landmarks(x)
-        return _normalize(_mlp_apply(params, x, train, gen))
+        return _normalize(_mlp_apply(params, x, train, gen, mesh))
 
 
 class GazeEstimator2:
@@ -98,14 +103,14 @@ class GazeEstimator2:
 
     @staticmethod
     def apply(params: dict, x: torch.Tensor, extract_feature: bool = False, train: bool = False,
-              gen: torch.Generator | None = None, compute_dtype=torch.float32) -> torch.Tensor:
+              gen: torch.Generator | None = None, compute_dtype=torch.float32, mesh=None) -> torch.Tensor:
         """x: (B, 2048) features, or channel-last RGB images (B, H, W, 3)
         when ``extract_feature`` (the ResNet50 trunk runs in
         ``compute_dtype``, the head in float32); returns (B, 3) unit gaze
         vectors."""
         if extract_feature:
             x = ResNet50.apply(params["resnet"], x, compute_dtype=compute_dtype)
-        return _normalize(_mlp_apply(params["head"], x, train, gen))
+        return _normalize(_mlp_apply(params["head"], x, train, gen, mesh))
 
 
 class GazeEstimator1Complicated:

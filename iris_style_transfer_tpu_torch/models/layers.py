@@ -156,3 +156,19 @@ def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None, train: bo
     keep = 1.0 - rate
     mask = torch.empty(x.shape, device=x.device).bernoulli_(keep, generator=gen).to(torch.bool)
     return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
+def block_dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None, train: bool,
+                  block: tuple | None) -> torch.Tensor:
+    """:func:`dropout` of ``x``, the block ``whole[index]`` of a tensor of
+    ``shape`` split over ranks (``block = (shape, index)``; None: ``x`` is
+    the whole tensor).  The mask is drawn for the whole tensor and indexed,
+    so that the split tensor drops what the whole one would."""
+    if block is None:
+        return dropout(x, rate, gen, train)
+    if not train or rate == 0.0 or gen is None:
+        return x
+    keep = 1.0 - rate
+    shape, index = block
+    mask = torch.empty(shape, device=x.device).bernoulli_(keep, generator=gen).to(torch.bool)[index]
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)

@@ -14,6 +14,12 @@ same file names in a checkpoint directory:
   * ``state_%08d.npz`` (:func:`save_state`, :func:`restore_state`): the
     port's own (params, Adam state, epoch) leaves stored positionally,
     restored into a template of the same structure; read only by the port.
+
+On a mesh (``parallel/mesh.py``) the files always hold the whole
+parameters: :func:`save_training_state` gathers the blocks that a spec
+split over the ranks and rank 0 alone writes, and
+:func:`resume_training_state` reads the whole state on every rank and
+cuts each rank's blocks from it, so a run resumes at any rank count.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from ..models.port import from_jax, load_npz, save_npz
+from ..parallel.mesh import Mesh, gather_leaf, gather_params, shard_leaf, shard_params, spec_leaves
 
 
 def _latest(ckpt_dir: str, stem: str) -> int | None:
@@ -128,22 +135,40 @@ def load_adam_state(opt: torch.optim.Adam, state: list[dict]) -> None:
         opt.state[p] = {k: v.clone() for k, v in st.items()}
 
 
-def save_training_state(ckpt_dir: str, epoch: int, params, opt: torch.optim.Adam) -> None:
+def _map_adam(fn, state: list[dict], specs: list) -> list[dict]:
+    """``fn(moment, spec)`` over the moments of an :func:`adam_state`."""
+    return [{k: v if k == "step" else fn(v, sp) for k, v in st.items()} for st, sp in zip(state, specs, strict=True)]
+
+
+def save_training_state(ckpt_dir: str, epoch: int, params, opt: torch.optim.Adam,
+                        mesh: Mesh | None = None, spec=None) -> None:
     """Both files of an epoch: the parameters for the JAX package and the
     IST mains (``step_``), and params + Adam state + epoch for ``--resume``
-    (``state_``)."""
-    save_checkpoint(ckpt_dir, epoch, {"params": params, "step": epoch})
-    save_state(ckpt_dir, epoch, (params, adam_state(opt), epoch))
+    (``state_``).  On a ``mesh`` every rank calls it: the blocks split by
+    ``spec`` are gathered, and rank 0 writes."""
+    state = adam_state(opt)
+    if mesh is not None and spec is not None:
+        specs = spec_leaves(params, spec)
+        params = gather_params(mesh, params, spec)
+        state = _map_adam(lambda t, sp: gather_leaf(mesh, t, sp), state, specs)
+    if mesh is None or mesh.is_main:
+        save_checkpoint(ckpt_dir, epoch, {"params": params, "step": epoch})
+        save_state(ckpt_dir, epoch, (params, state, epoch))
 
 
-def resume_training_state(ckpt_dir: str, params, opt: torch.optim.Adam) -> int:
+def resume_training_state(ckpt_dir: str, params, opt: torch.optim.Adam,
+                          mesh: Mesh | None = None, spec=None) -> int:
     """Load the latest ``state_`` file of ``ckpt_dir`` into ``params`` (in
     place, so ``opt`` keeps its references) and ``opt``; returns the epoch
-    to start from, 0 when there is no state."""
+    to start from, 0 when there is no state.  On a ``mesh`` (every rank
+    calls it) each rank keeps its blocks under ``spec``."""
     restored = restore_state(ckpt_dir, (params, adam_state(opt), 0))
     if restored is None:
         return 0
     epoch, (saved, state, _) = restored
+    if mesh is not None and spec is not None:
+        state = _map_adam(lambda t, sp: shard_leaf(mesh, t, sp), state, spec_leaves(params, spec))
+        saved = shard_params(mesh, saved, spec)
     with torch.no_grad():
         for p, q in zip(pytree.tree_leaves(params), pytree.tree_leaves(saved), strict=True):
             p.copy_(q)

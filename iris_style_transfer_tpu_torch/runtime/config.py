@@ -2,8 +2,11 @@
 
 Counterpart of ``iris_style_transfer_tpu/runtime/config.py``; the same
 dataclass and flags, so a command line of the JAX workload parses here.
-Knobs that only shape the TPU program (``scan_unroll``, ``n_devices``) are
-accepted and have no effect on one device.  So is ``--pallas_gram``: the
+``--n_devices N > 1`` runs a main data-parallel on N ranks
+(:func:`spawns_ranks`, :func:`run_on_ranks`, :func:`main_mesh`); under
+``torchrun`` the launcher's environment says the ranks instead.
+``--scan_unroll`` only shapes the TPU program and has no effect here.  Nor
+does ``--pallas_gram``: the
 IST mains never use the Gram loss, and on a CUDA device the Gram always
 runs the hand-written kernel (``ops/blockwise_gram.py``).
 ``--stats_taps on`` takes the fused relu+stats style taps
@@ -14,9 +17,15 @@ runs the hand-written kernel (``ops/blockwise_gram.py``).
 from __future__ import annotations
 
 import argparse
+import functools
+import os
+import sys
 from dataclasses import asdict, dataclass
 
 import torch
+import torch.distributed as dist
+
+from ..parallel.mesh import Mesh, make_mesh, run_ranks
 
 
 def resolve_device(name: str) -> torch.device:
@@ -105,3 +114,37 @@ def parse_config(parser: argparse.ArgumentParser, defaults: WorkloadConfig, argv
     args = parser.parse_args(argv)
     cfg = WorkloadConfig(**{k: getattr(args, k) for k in defaults.to_dict() if hasattr(args, k)})
     return cfg, args
+
+
+def _in_process_group() -> bool:
+    return dist.is_initialized() or "WORLD_SIZE" in os.environ
+
+
+def spawns_ranks(cfg: WorkloadConfig) -> bool:
+    """True when ``--n_devices N > 1`` asks for ranks that no process group
+    or launcher provides: the main then runs itself on N spawned ranks."""
+    return cfg.n_devices > 1 and not _in_process_group()
+
+
+def run_on_ranks(main, argv, cfg: WorkloadConfig, device: torch.device):
+    """``main(argv)`` on ``cfg.n_devices`` ranks spawned on this host (one
+    card each, or all on the CPU); returns rank 0's result."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    devices = None if device.type == "cuda" else [device] * cfg.n_devices
+    return run_ranks(functools.partial(main, argv), cfg.n_devices, devices=devices)
+
+
+def main_mesh(cfg: WorkloadConfig, device: torch.device) -> Mesh:
+    """The mesh a main runs on: one rank on ``device`` outside a process
+    group; inside one, its ranks, each on its own card (``cuda:LOCAL_RANK``)
+    or all on the CPU.  A mesh the ranks cannot form stops the run."""
+    if _in_process_group():
+        world = dist.get_world_size() if dist.is_initialized() else int(os.environ["WORLD_SIZE"])
+        devices = None if device.type == "cuda" else [device] * world
+    else:
+        devices = [device]
+    try:
+        return make_mesh(cfg.n_devices or None, cfg.model_parallel, devices=devices)
+    except ValueError as e:
+        raise SystemExit(f"{e}: pass --n_devices N, or run the main under torchrun "
+                         "(README, data parallelism; ROADMAP §1 item 10)") from None

@@ -18,16 +18,22 @@ def _to_scalar(v):
 
 
 class MetricLogger:
+    """``enabled=False`` (the ranks other than 0 of a mesh) writes nothing
+    and only counts the steps."""
+
     def __init__(self, project: str, name: str, config: dict | None = None,
-                 out_dir: str = "saved/logs", use_wandb: bool | None = None):
+                 out_dir: str = "saved/logs", use_wandb: bool | None = None, enabled: bool = True):
         self.project = project
         self.name = name
         self.step = 0
+        self.enabled = enabled
+        self._wandb = None
+        if not enabled:
+            return
         os.makedirs(out_dir, exist_ok=True)
         safe = name.replace("/", "_").replace(" ", "_")
         self.path = os.path.join(out_dir, f"{project}__{safe}.jsonl")
         self._fh = open(self.path, "a")
-        self._wandb = None
         if use_wandb is None:
             use_wandb = os.environ.get("IST_TPU_WANDB", "0") == "1"
         if use_wandb:
@@ -43,6 +49,9 @@ class MetricLogger:
             self._fh.flush()
 
     def log(self, metrics: dict[str, Any]) -> None:
+        if not self.enabled:
+            self.step += 1
+            return
         rec = {k: _to_scalar(v) for k, v in metrics.items()}
         rec["_step"] = self.step
         rec["_time"] = time.time()
@@ -53,6 +62,8 @@ class MetricLogger:
         self.step += 1
 
     def finish(self) -> None:
+        if not self.enabled:
+            return
         self._fh.close()
         if self._wandb is not None:
             self._wandb.finish()

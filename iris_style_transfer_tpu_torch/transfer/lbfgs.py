@@ -18,6 +18,13 @@ state it is given, which saves copying both (m, N) buffers every closure),
 and chronological order is a permutation applied to the (m,) and (m, m)
 quantities only.  The buffers
 may be bfloat16 (``dtype``); their dot products accumulate in float32.
+
+With a process ``group`` the parameter is split over its ranks (the NST's
+image batch, ``parallel/mesh.py``), and every inner product is the sum of
+the ranks' partial ones: ``y.s``, ``y.y`` and ``|g|_1`` in one
+``all_reduce``, the compact direction's ``S g``, ``Y g``, ``S Y'`` and
+``Y Y'`` (2m + 2m^2 floats) in one more.  The (m,) and (m, m) algebra then
+runs identically on every rank, and each rank applies it to its own block.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from ..parallel.mesh import all_reduce
 
 
 class LBFGSState(NamedTuple):
@@ -68,7 +77,7 @@ def _chron_perm(state: LBFGSState) -> torch.Tensor:
     return (state.count + torch.arange(m, device=state.count.device)) % m
 
 
-def _compact_direction(state: LBFGSState, g: torch.Tensor) -> torch.Tensor:
+def _compact_direction(state: LBFGSState, g: torch.Tensor, group=None) -> torch.Tensor:
     """-H @ g by the compact representation (Byrd-Nocedal-Schnabel; Nocedal
     & Wright eq. 7.25).  All work on (m, N) buffers is six matrix products;
     the chronological permutation and the two triangular solves act on
@@ -84,6 +93,10 @@ def _compact_direction(state: LBFGSState, g: torch.Tensor) -> torch.Tensor:
     Yg = Y @ gb
     SY = S @ Y.t()  # (i, j) = s_i . y_j in slot order
     YY = Y @ Y.t()
+    if group is not None:
+        packed = all_reduce(torch.cat([Sg, Yg, SY.reshape(-1), YY.reshape(-1)]), group)
+        Sg, Yg, SY, YY = packed.split([m, m, m * m, m * m])
+        SY, YY = SY.view(m, m), YY.view(m, m)
 
     perm = _chron_perm(state)
     rho_c = state.rho[perm]
@@ -114,7 +127,8 @@ def _compact_direction(state: LBFGSState, g: torch.Tensor) -> torch.Tensor:
 
 
 def _two_loop(state: LBFGSState, g: torch.Tensor) -> torch.Tensor:
-    """Two-loop recursion for -H @ g (the textbook form; a test oracle)."""
+    """Two-loop recursion for -H @ g (the textbook form; a test oracle, on
+    one rank only)."""
     m = state.s_hist.shape[0]
     perm = _chron_perm(state)
     q = g
@@ -136,10 +150,14 @@ def _two_loop(state: LBFGSState, g: torch.Tensor) -> torch.Tensor:
 
 
 def lbfgs_step(
-    state: LBFGSState, g: torch.Tensor, lr: float = 1.0, method: str = "compact"
+    state: LBFGSState, g: torch.Tensor, lr: float = 1.0, method: str = "compact", group=None
 ) -> tuple[torch.Tensor, LBFGSState]:
     """One L-BFGS iteration given the gradient at the current point.
-    Returns ``(update, new_state)``; the caller adds ``update`` (= t*d)."""
+    Returns ``(update, new_state)``; the caller adds ``update`` (= t*d).
+    With ``group``, ``g`` and the state are this rank's block of a
+    parameter split over the group's ranks."""
+    if group is not None and method != "compact":
+        raise ValueError("the two-loop recursion is a one-rank test oracle; a split parameter takes 'compact'")
     m = state.s_hist.shape[0]
     g = g.float()
     first = state.iteration == 0
@@ -147,6 +165,10 @@ def lbfgs_step(
     y = g - state.prev_g
     s = state.prev_step
     ys = _vdot(y, s)
+    yy = _vdot(y, y)
+    g1 = g.abs().sum() if first else None
+    if group is not None:
+        ys, yy, g1 = _global_dots(group, ys, yy, g1)
     accept = (ys > 1e-10) & (not first)
 
     # circular-buffer write: the new pair on accept, the old row back on reject
@@ -160,15 +182,23 @@ def lbfgs_step(
     y_hist = push(state.y_hist, y)
     new_rho = torch.where(accept, 1.0 / torch.clamp_min(ys, 1e-30), state.rho.index_select(0, w)[0])
     rho = state.rho.index_copy(0, w, new_rho.reshape(1))
-    gamma = torch.where(accept, ys / torch.clamp_min(_vdot(y, y), 1e-30), state.gamma)
+    gamma = torch.where(accept, ys / torch.clamp_min(yy, 1e-30), state.gamma)
     count = state.count + accept.to(state.count.dtype)
 
     if first:
         d = -g
-        t = torch.clamp_max(1.0 / torch.clamp_min(g.abs().sum(), 1e-30), 1.0) * lr
+        t = torch.clamp_max(1.0 / torch.clamp_min(g1, 1e-30), 1.0) * lr
     else:
         tmp = LBFGSState(s_hist, y_hist, rho, gamma, g, s, state.iteration, count)
-        d = (_compact_direction if method == "compact" else _two_loop)(tmp, g)
+        d = _compact_direction(tmp, g, group) if method == "compact" else _two_loop(tmp, g)
         t = lr
     update = t * d
     return update, LBFGSState(s_hist, y_hist, rho, gamma, g, update, state.iteration + 1, count)
+
+
+def _global_dots(group, ys: torch.Tensor, yy: torch.Tensor, g1: torch.Tensor | None):
+    """``y.s``, ``y.y`` and (on the first step) ``|g|_1`` summed over the
+    group's ranks, in one ``all_reduce``."""
+    parts = [ys, yy] if g1 is None else [ys, yy, g1]
+    packed = all_reduce(torch.stack(parts), group)
+    return packed[0], packed[1], (packed[2] if g1 is not None else None)

@@ -20,6 +20,15 @@ computes inside the VGG forward (``stats_taps=True``, ``ops/relu_stats.py``),
 and the Gram loss (``bn_loss=False``), whose Gram matrices, targets and
 closure alike, go through ``ops/blockwise_gram.py``.  On a CUDA device
 both of those are the hand-written kernels.
+
+With a ``mesh`` (``parallel/mesh.py``) each rank holds its block of the
+batch, and the joint problem stays the single-device one: each rank's loss
+is its share of the global loss (the content loss is a mean over the whole
+batch, so a rank's mean is divided by the data shards; the style losses
+are sums over the batch and add as they are), so the gradient on a rank's
+pixels is its block of the global gradient, and the L-BFGS reduces its
+inner products over the data group.  The loss histories are summed over
+the data group once, after the loop.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ import torch
 from ..models.vgg import VGG19
 from ..ops.blockwise_gram import gram_matrix
 from ..ops.losses import content_loss_l2, style_loss_bn, style_loss_bn_stats, style_loss_gram, style_stats
+from ..parallel.mesh import Mesh, all_reduce, batch_sharding
 from .lbfgs import lbfgs_init, lbfgs_step
 
 ADAM_B1, ADAM_B2 = 0.9, 0.999
@@ -60,13 +70,16 @@ def make_nst_fn(
     style_layers: Sequence[str] = ("relu1_1", "relu2_1", "relu3_1", "relu4_1"),
     compute_dtype=torch.float32,
     stats_taps: bool = False,
+    mesh: Mesh | None = None,
 ):
     """Build ``fn(vgg_params, c_img, s_img, generator=None) -> NSTResult``.
     ``generator`` (a CPU ``torch.Generator``) draws the noise init when
     ``clone_content=False``; ``history_every=k`` keeps every k-th image.
     ``stats_taps=True`` takes the fused relu+stats taps for the BN loss; it
     needs the BN loss and every style layer a relu that is not a content
-    layer, and otherwise the classic path runs, as in the JAX package."""
+    layer, and otherwise the classic path runs, as in the JAX package.
+    With ``mesh``, the images are this rank's block of the batch, and the
+    histories come back summed over its data group."""
     if optimizer not in ("lbfgs", "adam"):
         raise ValueError(f"unknown optimizer: {optimizer}")
     use_stats = stats_taps and bn_loss and VGG19.stats_taps_eligible(style_layers, content_layers)
@@ -78,6 +91,8 @@ def make_nst_fn(
         truncate=True,
         stats_taps=use_stats,
     )
+    group = mesh.data_group if mesh is not None else None
+    n_data = mesh.shape["data"] if mesh is not None else 1
 
     @torch.no_grad()
     def fn(vgg_params, c_img, s_img, generator: torch.Generator | None = None) -> NSTResult:
@@ -96,6 +111,8 @@ def make_nst_fn(
         def loss_fn(x):
             _, x_c, x_s = vgg_apply(params, x)
             c_loss = content_loss_l2(x_c, c_targets)
+            if n_data > 1:  # this block's share of the mean over the whole batch
+                c_loss = c_loss / n_data
             if use_stats:
                 s_loss = style_loss_bn_stats(x_s, s_targets)
             elif bn_loss:
@@ -109,7 +126,11 @@ def make_nst_fn(
         else:
             if generator is None:
                 generator = torch.Generator().manual_seed(0)
-            x = torch.rand(c_img.shape, generator=generator).to(device)
+            if n_data > 1:  # this rank's block of the whole batch's draw
+                shape = (c_img.shape[0] * n_data, *c_img.shape[1:])
+                x = torch.rand(shape, generator=generator)[batch_sharding(mesh, shape[0])].to(device)
+            else:
+                x = torch.rand(c_img.shape, generator=generator).to(device)
 
         shape = x.shape
         n_snaps = epochs // history_every if history_every else 0
@@ -132,7 +153,7 @@ def make_nst_fn(
             c_hist[i] = c_loss
             s_hist[i] = s_loss
             if optimizer == "lbfgs":
-                update, state = lbfgs_step(state, g, lr)
+                update, state = lbfgs_step(state, g, lr, group=group)
             else:
                 t = i + 1.0
                 m = ADAM_B1 * m + (1 - ADAM_B1) * g
@@ -143,6 +164,8 @@ def make_nst_fn(
             if n_snaps and i % history_every == 0 and i // history_every < n_snaps:
                 snaps[i // history_every] = x
             x = x + update
+        if group is not None:
+            c_hist, s_hist = all_reduce(torch.stack([c_hist, s_hist]), group)
         return NSTResult(x.clamp(0.0, 1.0), c_hist, s_hist, snaps)
 
     return fn
@@ -163,11 +186,13 @@ def nst(
     history_size: int = 10,
     compute_dtype=torch.float32,
     generator: torch.Generator | None = None,
+    mesh: Mesh | None = None,
 ) -> NSTResult:
     """Convenience wrapper with the reference's flag names
     (``pipelines.py:8-19``), built once per configuration.  Images are NCHW
     in [0,1]; ``generator`` takes the place of the JAX ``noise_key``, and
-    ``scan_unroll`` has no counterpart in an eager loop."""
+    ``scan_unroll`` has no counterpart in an eager loop.  With ``mesh``,
+    the images are this rank's block of the batch."""
     fn = _cached_nst_fn(
         epochs=epochs,
         clone_content=clone_content,
@@ -179,6 +204,7 @@ def nst(
         history_every=history_every,
         history_size=history_size,
         compute_dtype=compute_dtype,
+        mesh=mesh,
     )
     return fn(vgg_params, c_img, s_img, generator)
 
@@ -197,11 +223,13 @@ def cached_nst_program(
     compute_dtype_name: str,
     history_size: int = 10,
     stats_taps: str = "off",
+    mesh: Mesh | None = None,
 ):
     """The production NST program shared by the IST workload mains: BN
     loss, content-clone init, compact L-BFGS with a bfloat16 history.
     ``stats_taps`` is ``--stats_taps``: "on" takes the fused relu+stats
-    taps; "auto" is resolved to "off" before the cache, the JAX default."""
+    taps; "auto" is resolved to "off" before the cache, the JAX default.
+    ``mesh`` is the main's (None: one device)."""
     if stats_taps not in ("auto", "on", "off"):
         raise ValueError(f"stats_taps must be auto, on or off, got {stats_taps!r}")
     return _cached_nst_fn(
@@ -212,4 +240,5 @@ def cached_nst_program(
         history_size=history_size,
         lbfgs_dtype=torch.bfloat16,
         stats_taps=stats_taps == "on",
+        mesh=mesh,
     )

@@ -1,4 +1,4 @@
-"""Train the gaze estimators (OpenEDS2020), on one device.
+"""Train the gaze estimators (OpenEDS2020), data-parallel.
 
 Counterpart of ``iris_style_transfer_tpu/workloads/gaze_estimation.py``
 (reference ``gaze_estimation.py``): GazeEstimator1 on the 19-d eye
@@ -20,6 +20,13 @@ batch; evaluation pads it and masks the padded rows out.  Without the tree
 the run uses the synthetic gaze twin: 96 training frames and 32 validation
 (and test) frames.  Every step drops the last short batch, so a batch size
 above the training frames gives no step and the run stops with an error.
+
+On a mesh (``--n_devices N``, or ``torchrun``; ``parallel/mesh.py``) every
+rank walks the same global batches and trains on its block: the gradients
+are averaged over the data group before Adam, the dropout masks are the
+whole batch's, cut to the block, and the predictions are gathered.  All
+BatchNorm on the path (ResNet50's) is in inference mode, as in JAX, so no
+batch statistics need reducing.  Rank 0 alone logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -43,8 +50,17 @@ from ..models import EfficientNet, GazeEstimator1, GazeEstimator2, load_pretrain
 from ..ops.ellipse import extract_eye_landmarks
 from ..ops.image import to_unit_float
 from ..ops.metrics import angular_distance, cosine_embedding_loss
+from ..parallel.mesh import Mesh, gather_batch, one_rank, pmean_grads, replicated
 from ..runtime import MetricLogger, StepTimer, resume_training_state, save_training_state
-from ..runtime.config import WorkloadConfig, add_common_args, parse_config, resolve_device
+from ..runtime.config import (
+    WorkloadConfig,
+    add_common_args,
+    main_mesh,
+    parse_config,
+    resolve_device,
+    run_on_ranks,
+    spawns_ranks,
+)
 from ..utils import seed as seed_all
 from .iris_classification import _sync, trainable
 
@@ -64,24 +80,27 @@ def _synthetic_gaze(n: int, estimator: int, seed: int = 0, device="cpu") -> tupl
     return imgs, gaze
 
 
-def make_steps(estimator: int, compute_dtype=torch.float32):
+def make_steps(estimator: int, compute_dtype=torch.float32, mesh: Mesh | None = None):
     """``train_step(params, opt, x, y, gen)`` and ``eval_step(params, x)``;
     dropout is on where ``gen`` is given.  Estimator 2 owns its ResNet50
-    trunk and trains it (reference ``:56-59``)."""
+    trunk and trains it (reference ``:56-59``).  With ``mesh``, ``x`` and
+    ``y`` are this rank's block of the batch."""
 
     def forward(params, x, gen):
         x = to_unit_float(x)  # frames may stage as uint8
         train = gen is not None
         if estimator == 1:
-            return GazeEstimator1.apply(params, x, train=train, gen=gen)
+            return GazeEstimator1.apply(params, x, train=train, gen=gen, mesh=mesh)
         return GazeEstimator2.apply(params, x, extract_feature=True, train=train, gen=gen,
-                                    compute_dtype=compute_dtype)
+                                    compute_dtype=compute_dtype, mesh=mesh)
 
     def train_step(params, opt, x, y, gen):
         o = forward(params, x, gen)
         loss = cosine_embedding_loss(o, y)
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            pmean_grads(mesh, opt.param_groups[0]["params"])
         opt.step()
         return loss.detach(), o.detach()
 
@@ -101,7 +120,10 @@ def _epoch_metrics(preds: torch.Tensor, labels: torch.Tensor, prefix: str, log: 
 
 
 def gaze_estimation(cfg: WorkloadConfig, device: torch.device, lrs=LRS, effnet_weights: str = "",
-                    resnet_weights: str = "") -> dict:
+                    resnet_weights: str = "", mesh: Mesh | None = None) -> dict:
+    """Train the estimator over ``lrs``; ``mesh`` is the run's (None:
+    ``device`` alone)."""
+    mesh = mesh if mesh is not None else one_rank(device)
     seed_all(cfg.seed)
     base = os.path.join(cfg.data_dir, "openeds2020", "openEDS2020-GazePrediction")
     use_real = os.path.isdir(base)
@@ -111,6 +133,8 @@ def gaze_estimation(cfg: WorkloadConfig, device: torch.device, lrs=LRS, effnet_w
     if n_train < cfg.bs:
         raise SystemExit(f"{n_train} training frames give no step at -bs {cfg.bs} (the last short batch is "
                          f"dropped); use -bs {n_train} or less")
+    if cfg.bs % mesh.shape["data"]:
+        raise SystemExit(f"batch size {cfg.bs} not divisible by {mesh.shape['data']} data shards")
     compute_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     resnet_pre = None
     if cfg.estimator == 2 and (resnet_weights or pretrained_path("resnet50")):
@@ -145,24 +169,26 @@ def gaze_estimation(cfg: WorkloadConfig, device: torch.device, lrs=LRS, effnet_w
     train = load("train/")
     print("loading validation set...")
     splits = [("valid", load("validation/"))] + ([("test", load("test/"))] if cfg.test else [])
-    train_step, eval_step = make_steps(cfg.estimator, compute_dtype)
+    train_step, eval_step = make_steps(cfg.estimator, compute_dtype, mesh)
 
     final: dict = {}
     for lr in lrs:
         gen = seed_all(cfg.seed)
         kind = "model-based" if cfg.estimator == 1 else "appearance-based"
-        logger = MetricLogger(cfg.project, f"seed {cfg.seed} {kind} lr {lr}", {**cfg.to_dict(), "lr": lr})
+        logger = MetricLogger(cfg.project, f"seed {cfg.seed} {kind} lr {lr}", {**cfg.to_dict(), "lr": lr},
+                              enabled=mesh.is_main)
         if cfg.estimator == 1:
             params = GazeEstimator1.init(gen, device=device)
         else:
             params = GazeEstimator2.init(gen, extract_feature=True, device=device)
             if resnet_pre is not None:  # reference resnet.py:18-21
                 params["resnet"] = pytree.tree_map(torch.clone, resnet_pre)  # each lr starts afresh
+        params = replicated(mesh, params)
         opt = torch.optim.Adam(trainable(params), lr=lr)
         timer = StepTimer()
         # seed-scoped, so --resume never restores another configuration's state
         ckpt_dir = f"saved/checkpoints/gaze_estimator{cfg.estimator}_lr_{lr}_seed_{cfg.seed}"
-        start_epoch = resume_training_state(ckpt_dir, params, opt) if cfg.resume else 0
+        start_epoch = resume_training_state(ckpt_dir, params, opt, mesh) if cfg.resume else 0
         if start_epoch:
             print(f"resumed lr {lr} from epoch {start_epoch}")
 
@@ -170,22 +196,23 @@ def gaze_estimation(cfg: WorkloadConfig, device: torch.device, lrs=LRS, effnet_w
         for e in range(start_epoch, cfg.epochs):
             log: dict = {}
             preds, labels = [], []
-            for bi, batch in enumerate(prefetch_to_device(train_batches(train, e), device)):
+            for bi, batch in enumerate(prefetch_to_device(train_batches(train, e), device, mesh=mesh)):
                 x, y = batch[0], batch[1]
                 drop_gen.manual_seed(cfg.seed * 1_000_000_000 + e * 100_000 + bi)
                 with timer:
                     _, o = train_step(params, opt, x, y, drop_gen)
                     _sync(device)
-                preds.append(o)
-                labels.append(y)
+                preds.append(gather_batch(mesh, o))
+                labels.append(gather_batch(mesh, y))
             _epoch_metrics(torch.cat(preds), torch.cat(labels), "train", log)
 
             for split_name, split in splits:
                 preds, labels = [], []
-                for batch in prefetch_to_device(eval_batches(split), device):
-                    o, y = eval_step(params, batch[0]), batch[1]
+                for batch in prefetch_to_device(eval_batches(split), device, mesh=mesh):
+                    o, y = gather_batch(mesh, eval_step(params, batch[0])), gather_batch(mesh, batch[1])
                     if len(batch) > 2:  # the last batch's padded rows are masked out
-                        o, y = o[batch[2]], y[batch[2]]
+                        valid = gather_batch(mesh, batch[2])
+                        o, y = o[valid], y[valid]
                     preds.append(o)
                     labels.append(y)
                 _epoch_metrics(torch.cat(preds), torch.cat(labels), split_name, log)
@@ -194,7 +221,7 @@ def gaze_estimation(cfg: WorkloadConfig, device: torch.device, lrs=LRS, effnet_w
             logger.log(log)
             final = log
             if cfg.save_period > 0 and (e + 1) % cfg.save_period == 0:
-                save_training_state(ckpt_dir, e + 1, params, opt)
+                save_training_state(ckpt_dir, e + 1, params, opt, mesh)
         logger.finish()
     return final
 
@@ -214,9 +241,13 @@ def main(argv: list[str] | None = None):
         raise SystemExit(f"-estimator must be 1 or 2, got {cfg.estimator}")
     device = resolve_device(args.device)
     if cfg.model_parallel > 1:
-        raise SystemExit("--model_parallel > 1 needs a multi-device mesh, which the torch "
-                         "port does not have yet (ROADMAP: multi-device data parallelism)")
-    return gaze_estimation(cfg, device, effnet_weights=args.effnet_weights, resnet_weights=args.resnet_weights)
+        raise SystemExit("--model_parallel > 1: the gaze estimators have no tensor-parallel split (the JAX "
+                         "main runs them on a data-only mesh); use --n_devices (ROADMAP §1 item 10)")
+    if spawns_ranks(cfg):
+        return run_on_ranks(main, argv, cfg, device)
+    mesh = main_mesh(cfg, device)
+    return gaze_estimation(cfg, mesh.device, effnet_weights=args.effnet_weights, resnet_weights=args.resnet_weights,
+                           mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """Iris style transfer privacy evaluation — OpenEDS2019 (recognition +
-segmentation), on one device.
+segmentation), data-parallel.
 
 Counterpart of ``iris_style_transfer_tpu/workloads/ist_openeds2019.py``
 (reference ``iris_style_transfer_openeds2019.py``).  Per batch: crop the
@@ -16,6 +16,14 @@ batch's device work.  With ``--data_dir/openeds2019`` present the run
 reads that OpenEDS2019 tree, with its segmentation labels
 (``data/openeds2019.py:load_data_openeds2019``); without it, the synthetic
 twin.
+
+On a mesh (``--n_devices N``, or ``torchrun``; ``parallel/mesh.py``) every
+rank walks the same global batches and runs RITnet, the classifiers, the
+joint NST (its L-BFGS reduced over the data group) and the composite on
+its block; the logits and IoUs are gathered, so the per-batch and epoch
+metrics are the global batch's, and rank 0 alone writes logs, PNGs,
+arrays and ``done.json``.  ``--model_parallel > 1`` (spatial sharding in
+JAX) is not ported.
 """
 
 from __future__ import annotations
@@ -32,9 +40,18 @@ from ..data import batch_iterator, build_ist_dataset, load_data_openeds2019, syn
 from ..models import Classifier1, Classifier2, RITnet, VGG19, load_pretrained
 from ..ops.image import as_bool_mask, as_label_map, crop_and_resize, gray_to_rgb, to_unit_float
 from ..ops.metrics import classification_metrics, iou_per_class
+from ..parallel.mesh import SPATIAL_ITEM, Mesh, barrier, gather_batch, one_rank, replicated, shard_batch
 from ..pipelines import composite_batch
 from ..runtime import MetricLogger, StepTimer, restore_params
-from ..runtime.config import WorkloadConfig, add_common_args, parse_config, resolve_device
+from ..runtime.config import (
+    WorkloadConfig,
+    add_common_args,
+    main_mesh,
+    parse_config,
+    resolve_device,
+    run_on_ranks,
+    spawns_ranks,
+)
 from ..transfer.nst import cached_nst_program
 from ..utils import prepare_dir, save_png, seed as seed_all, sweep_done, write_sweep_marker
 
@@ -147,14 +164,18 @@ def iris_style_transfer_openeds2019(
     save_period: int = 50,
     num_class: int = 152,
     programs=None,
+    mesh: Mesh | None = None,
 ) -> dict:
+    """One sweep combo over ``dataset``; with ``mesh`` (None: ``device``
+    alone) each rank runs its block of every batch, and rank 0 writes."""
+    mesh = mesh if mesh is not None else one_rank(device)
     compute_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     if programs is None:
         programs = make_programs(compute_dtype)
     pre_fn, post_fn, post_seg = programs
     nst_fn = cached_nst_program(
         nst_epoch, float(c_loss_weight), float(s_loss_weight), cfg.compute_dtype, cfg.history_size,
-        cfg.stats_taps,
+        cfg.stats_taps, mesh,
     )
 
     agg = {k: [] for k in ("pre1", "pre2", "post1", "post2", "c_labels", "s_labels",
@@ -173,20 +194,23 @@ def iris_style_transfer_openeds2019(
     try:
         for batch_id, batch in enumerate(batches):
             t_batch = time.perf_counter()
-            c_imgs, c_labels, masks, bboxes, seg_gt, s_irises, s_labels = batch[:7]
+            c_labels, s_labels = batch[1], batch[6]
             valid = batch[7] if len(batch) > 7 else np.ones(len(c_labels), bool)
+            # this rank's block; the labels and valid rows stay global on the host
+            c_imgs, masks, bboxes, seg_gt, s_irises = shard_batch(mesh, (batch[0], *batch[2:6]))
             irises, p1, p2 = pre_fn(vgg_params, c1_params, c2_params, c_imgs, masks, bboxes)
             yy = np.asarray(c_labels)[valid]
             ys = np.asarray(s_labels)[valid]
             futs = [metric_pool.submit(
-                _batch_metric_job, metric_prefix, num_class, "pre", yy, ys, valid, p1, p2
+                _batch_metric_job, metric_prefix, num_class, "pre", yy, ys, valid,
+                gather_batch(mesh, p1), gather_batch(mesh, p2),
             )]
             agg["c_labels"].append(yy)
             agg["s_labels"].append(ys)
 
-            if batch_id % save_period == 0:
-                save_png(f"{save_dir}batch_{batch_id}_raw.png", c_imgs[0].cpu().numpy())
-                save_png(f"{save_dir}batch_{batch_id}_sty.png", s_irises[0].cpu().numpy())
+            if batch_id % save_period == 0 and mesh.is_main:
+                save_png(f"{save_dir}batch_{batch_id}_raw.png", batch[0][0].cpu().numpy())
+                save_png(f"{save_dir}batch_{batch_id}_sty.png", batch[5][0].cpu().numpy())
 
             s_rgb = gray_to_rgb(to_unit_float(s_irises)).permute(0, 3, 1, 2)
             with timer:
@@ -199,12 +223,15 @@ def iris_style_transfer_openeds2019(
 
             new_frames, p1, p2 = post_fn(vgg_params, c1_params, c2_params, c_imgs, result.x, masks, bboxes)
             seg_parts = post_seg(ritnet_params, new_frames, seg_gt)
+            if mesh.shape["data"] > 1:  # (4, B / n) per rank -> (4, B)
+                seg_parts = [gather_batch(mesh, torch.cat(seg_parts, dim=1).t().contiguous()).t()]
             futs.append(metric_pool.submit(
-                _batch_metric_job, metric_prefix, num_class, "post", yy, ys, valid, p1, p2
+                _batch_metric_job, metric_prefix, num_class, "post", yy, ys, valid,
+                gather_batch(mesh, p1), gather_batch(mesh, p2),
             ))
             futs.append(metric_pool.submit(_seg_iou_job, metric_prefix, seg_parts, valid))
 
-            if batch_id % save_period == 0:
+            if batch_id % save_period == 0 and mesh.is_main:  # rank 0's block starts the batch
                 save_png(f"{save_dir}batch_{batch_id}_new.png", new_frames[0].cpu().numpy())
             pending.append(({}, futs))
             pipe_times.append(time.perf_counter() - t_batch)
@@ -225,11 +252,13 @@ def iris_style_transfer_openeds2019(
 
     log = {}
     ious = np.concatenate(agg["ious"], axis=1)
-    for c in range(4):
-        np.save(f"{save_dir}ious{c}_post.npy", ious[c])
-        log[f"{metric_prefix}post/mean_iou{c}"] = float(np.nanmean(ious[c]))
     mious = np.concatenate(agg["mious"])
-    np.save(f"{save_dir}mious_post.npy", mious)
+    if mesh.is_main:
+        for c in range(4):
+            np.save(f"{save_dir}ious{c}_post.npy", ious[c])
+        np.save(f"{save_dir}mious_post.npy", mious)
+    for c in range(4):
+        log[f"{metric_prefix}post/mean_iou{c}"] = float(np.nanmean(ious[c]))
     log[f"{metric_prefix}post/mean_miou"] = float(np.nanmean(mious))
 
     c_loss = float(np.nanmean(agg["c_loss"]))
@@ -275,8 +304,14 @@ def main(argv: list[str] | None = None):
 
     device = resolve_device(args.device)
     if cfg.model_parallel > 1:
-        raise SystemExit("--model_parallel > 1 needs a multi-device mesh, which the torch "
-                         "port does not have yet (ROADMAP: multi-device data parallelism)")
+        raise SystemExit(f"--model_parallel > 1 shards each image's height over the model group (spatial "
+                         f"sharding), which is not ported yet: {SPATIAL_ITEM}")
+    if spawns_ranks(cfg):
+        return run_on_ranks(main, argv, cfg, device)
+    mesh = main_mesh(cfg, device)
+    device = mesh.device
+    if cfg.bs % mesh.shape["data"]:
+        raise SystemExit(f"batch size {cfg.bs} not divisible by {mesh.shape['data']} data shards")
 
     gen = seed_all(cfg.seed)
     base = os.path.join(cfg.data_dir, "openeds2019")
@@ -293,6 +328,8 @@ def main(argv: list[str] | None = None):
     c1_params = _load_head(args.classifier1_path, "c1", Classifier1.init(gen, num_class, device), device)
     c2_params = _load_head(args.classifier2_path, "c2", Classifier2.init(gen, num_class=num_class, device=device),
                            device)
+    vgg_params, ritnet_params, c1_params, c2_params = (
+        replicated(mesh, p) for p in (vgg_params, ritnet_params, c1_params, c2_params))
 
     presentation = {"name", "project", "num_workers", "resume", "save_period"}
     sweep_config = {k: v for k, v in cfg.to_dict().items() if k not in presentation}
@@ -312,26 +349,31 @@ def main(argv: list[str] | None = None):
             for nst_epoch in args.nst_epochs:
                 save_dir = f"saved/openeds2019/sw_{sw}_epoch_{nst_epoch}/{prefix}"
                 done_marker = os.path.join(save_dir, "done.json")
+                barrier(mesh)  # rank 0's markers are written before any rank reads them
                 if sweep_done(done_marker, sweep_config, defaults=WorkloadConfig().to_dict()) and not args.rerun:
                     print(f"[sweep] {save_dir} already complete, skipping")
                     continue
-                prepare_dir(save_dir, idempotent=True)
+                if mesh.is_main:
+                    prepare_dir(save_dir, idempotent=True)
                 name = f"seed {cfg.seed} sw {sw} epoch {nst_epoch} {prefix[:-1]}"
-                logger = MetricLogger(cfg.project, name, cfg.to_dict())
+                logger = MetricLogger(cfg.project, name, cfg.to_dict(), enabled=mesh.is_main)
                 log = iris_style_transfer_openeds2019(
                     cfg, dataset, vgg_params, ritnet_params, c1_params, c2_params,
                     cfg.c_loss_weight, sw, nst_epoch, prefix, save_dir, logger, device,
-                    num_class=num_class, programs=programs,
+                    num_class=num_class, programs=programs, mesh=mesh,
                 )
                 pre_log = {}
                 for c in range(4):
-                    np.save(f"{save_dir}ious{c}_pre.npy", dataset.ious[c])
                     pre_log[f"{prefix}pre/mean_iou{c}"] = float(np.nanmean(dataset.ious[c]))
-                np.save(f"{save_dir}mious_pre.npy", dataset.mious)
                 pre_log[f"{prefix}pre/mean_miou"] = float(np.nanmean(dataset.mious))
+                if mesh.is_main:
+                    for c in range(4):
+                        np.save(f"{save_dir}ious{c}_pre.npy", dataset.ious[c])
+                    np.save(f"{save_dir}mious_pre.npy", dataset.mious)
                 logger.log(pre_log)
                 logger.finish()
-                write_sweep_marker(done_marker, sweep_config, log)
+                if mesh.is_main:
+                    write_sweep_marker(done_marker, sweep_config, log)
                 results[(prefix, sw, nst_epoch)] = log
     return results
 

@@ -1,5 +1,5 @@
 """Iris style transfer privacy evaluation — OpenEDS2020 (gaze preservation),
-on one device.
+data-parallel.
 
 Counterpart of ``iris_style_transfer_tpu/workloads/ist_openeds2020.py``
 (reference ``iris_style_transfer_openeds2020.py``): one fixed style iris for
@@ -22,6 +22,13 @@ that OpenEDS2020 tree: each split's labels eagerly, its frames streamed in
 order per sweep combination (``data/openeds2020.py:stream_openeds2020``),
 and the style iris from the frame ``test/sequences/2577/023.png``, as the
 JAX main does.  Without it, the synthetic twin with geometric gaze labels.
+
+On a mesh (``--n_devices N``, or ``torchrun``; ``parallel/mesh.py``) every
+rank walks the same global batches and runs B7, both estimators, the joint
+NST (its L-BFGS reduced over the data group) and the composite on its
+block, in chunks of :data:`SEG_CHUNK` frames; the predictions are
+gathered, and rank 0 alone writes logs, PNGs, arrays and ``done.json``.
+``--model_parallel > 1`` (spatial sharding in JAX) is not ported.
 """
 
 from __future__ import annotations
@@ -38,9 +45,18 @@ from ..data import batch_iterator, load_labels_openeds2020, stream_openeds2020, 
 from ..models import EfficientNet, GazeEstimator1, GazeEstimator2, VGG19, load_pretrained, pretrained_path
 from ..ops.image import crop_and_resize, gray_to_rgb, nonzero_bbox, quantize_u8, to_unit_float
 from ..ops.metrics import angular_distance
+from ..parallel.mesh import SPATIAL_ITEM, Mesh, barrier, gather_batch, one_rank, replicated, shard_batch
 from ..pipelines import composite_batch, extract_iris_batch
 from ..runtime import MetricLogger, StepTimer, restore_params
-from ..runtime.config import WorkloadConfig, add_common_args, parse_config, resolve_device
+from ..runtime.config import (
+    WorkloadConfig,
+    add_common_args,
+    main_mesh,
+    parse_config,
+    resolve_device,
+    run_on_ranks,
+    spawns_ranks,
+)
 from ..transfer.nst import cached_nst_program
 from ..utils import prepare_dir, read_png_gray, save_png, seed as seed_all, sweep_done, write_sweep_marker
 from .ist_openeds2019 import _sync
@@ -52,10 +68,12 @@ from .ist_openeds2019 import _sync
 SEG_CHUNK = 32
 
 
-def make_programs(glint_threshold: float, compute_dtype, device):
+def make_programs(glint_threshold: float, compute_dtype, device, mesh: Mesh | None = None):
     """The combo-independent per-batch programs, in chunks of SEG_CHUNK frames:
     pre (segment, both estimators, iris extraction) and post (composite,
-    re-segment, both estimators).  Built once per process."""
+    re-segment, both estimators).  Built once per process.  With ``mesh``,
+    pre takes the global batch of host frames and stages this rank's
+    block; every output is the block's."""
 
     def _estimate(eff_params, g1_params, g2_params, frames):
         segs = EfficientNet.apply(eff_params, frames, compute_dtype=compute_dtype)
@@ -69,6 +87,8 @@ def make_programs(glint_threshold: float, compute_dtype, device):
         """c_imgs: host frames (B, H, W, 1).  They go to the device as
         uint8, and the staged frames come back as the last output, so the
         post program composites into them without a second copy."""
+        if mesh is not None:
+            c_imgs = shard_batch(mesh, np.asarray(c_imgs))
         staged = torch.from_numpy(quantize_u8(np.asarray(c_imgs))).to(device)
         outs = []
         for i in range(0, staged.shape[0], SEG_CHUNK):
@@ -133,19 +153,23 @@ def iris_style_transfer_openeds2020(
     device: torch.device,
     save_period: int = 50,
     programs=None,
+    mesh: Mesh | None = None,
 ) -> dict:
     """One sweep combo over ``images`` (N, H, W, 1) with unit gaze
     ``labels`` (N, 3), or over the batches of ``images()``, a zero-argument
     factory of a (frames, labels, valid) stream such as
     :func:`stream_openeds2020`'s; ``s_iris`` is the (224, 224, 1) style
-    iris."""
+    iris.  With ``mesh`` (None: ``device`` alone) each rank runs its block
+    of every batch (``programs`` built with the same mesh), and rank 0
+    writes."""
+    mesh = mesh if mesh is not None else one_rank(device)
     compute_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     if programs is None:
-        programs = make_programs(cfg.glint_threshold, compute_dtype, device)
+        programs = make_programs(cfg.glint_threshold, compute_dtype, device, mesh)
     pre_fn, post_fn = programs
     nst_fn = cached_nst_program(
         nst_epoch, float(c_loss_weight), float(s_loss_weight), cfg.compute_dtype, cfg.history_size,
-        cfg.stats_taps,
+        cfg.stats_taps, mesh,
     )
     s_iris_rgb = gray_to_rgb(s_iris.to(device)).permute(2, 0, 1)  # (3, 224, 224)
 
@@ -161,13 +185,14 @@ def iris_style_transfer_openeds2020(
             t_batch = time.perf_counter()
             c_imgs, labs = batch[0], batch[1]
             valid = batch[2] if len(batch) > 2 else np.ones(len(labs), bool)
-            if batch_id % save_period == 0:
+            if batch_id % save_period == 0 and mesh.is_main:
                 save_png(f"{save_dir}batch_{batch_id}_raw.png", c_imgs[0])
 
             p1, p2, irises, masks, bboxes, frames_dev = pre_fn(eff_params, g1_params, g2_params, c_imgs)
             # metrics over valid rows only: padded rows repeat the last frame
             labs_v = np.asarray(labs)[valid]
-            futs = [metric_pool.submit(_gaze_metric_job, metric_prefix, "pre", p1, p2, labs_v, valid)]
+            futs = [metric_pool.submit(_gaze_metric_job, metric_prefix, "pre", gather_batch(mesh, p1),
+                                       gather_batch(mesh, p2), labs_v, valid)]
             agg["labels"].append(labs_v)
 
             with timer:
@@ -180,9 +205,10 @@ def iris_style_transfer_openeds2020(
             ))
 
             new_frames, p1, p2 = post_fn(eff_params, g1_params, g2_params, frames_dev, result.x, masks, bboxes)
-            futs.append(metric_pool.submit(_gaze_metric_job, metric_prefix, "post", p1, p2, labs_v, valid))
+            futs.append(metric_pool.submit(_gaze_metric_job, metric_prefix, "post", gather_batch(mesh, p1),
+                                           gather_batch(mesh, p2), labs_v, valid))
 
-            if batch_id % save_period == 0:
+            if batch_id % save_period == 0 and mesh.is_main:  # rank 0's block starts the batch
                 save_png(f"{save_dir}batch_{batch_id}_new.png", new_frames[0].cpu().numpy())
             pending.append(({}, futs))
             pipe_times.append(time.perf_counter() - t_batch)
@@ -203,11 +229,13 @@ def iris_style_transfer_openeds2020(
 
     log = {}
     labels_all = np.concatenate(agg["labels"])
-    np.save(f"{save_dir}labels.npy", labels_all)
+    if mesh.is_main:
+        np.save(f"{save_dir}labels.npy", labels_all)
     for phase in ("pre", "post"):
         for i in ("1", "2"):
             preds = np.concatenate(agg[f"{phase}{i}"])
-            np.save(f"{save_dir}preds{i}_{phase}.npy", preds)
+            if mesh.is_main:
+                np.save(f"{save_dir}preds{i}_{phase}.npy", preds)
             rad, deg = angular_distance(torch.from_numpy(preds), torch.from_numpy(labels_all))
             log[f"{metric_prefix}/{phase}/radian_distance{i}"] = float(rad.mean())
             log[f"{metric_prefix}/{phase}/degree_distance{i}"] = float(deg.mean())
@@ -259,8 +287,14 @@ def main(argv: list[str] | None = None):
 
     device = resolve_device(args.device)
     if cfg.model_parallel > 1:
-        raise SystemExit("--model_parallel > 1 needs a multi-device mesh, which the torch "
-                         "port does not have yet (ROADMAP: multi-device data parallelism)")
+        raise SystemExit(f"--model_parallel > 1 shards each image's height over the model group (spatial "
+                         f"sharding), which is not ported yet: {SPATIAL_ITEM}")
+    if spawns_ranks(cfg):
+        return run_on_ranks(main, argv, cfg, device)
+    mesh = main_mesh(cfg, device)
+    device = mesh.device
+    if cfg.bs % mesh.shape["data"]:
+        raise SystemExit(f"batch size {cfg.bs} not divisible by {mesh.shape['data']} data shards")
     gen = seed_all(cfg.seed)
     vgg_params = load_pretrained("vgg19", args.vgg_weights, lambda: VGG19.init(gen, device), device)
     eff_params = load_pretrained("efficientnet_unet", args.effnet_weights,
@@ -274,6 +308,8 @@ def main(argv: list[str] | None = None):
         # no trained estimator: at least the pretrained backbone, when ported
         if args.resnet_weights or pretrained_path("resnet50"):
             g2_params["resnet"] = load_pretrained("resnet50", args.resnet_weights, None, device)
+    vgg_params, eff_params, g1_params, g2_params = (
+        replicated(mesh, p) for p in (vgg_params, eff_params, g1_params, g2_params))
 
     base = os.path.join(cfg.data_dir, "openeds2020", "openEDS2020-GazePrediction")
     use_real = os.path.isdir(base)
@@ -299,7 +335,7 @@ def main(argv: list[str] | None = None):
     if cfg.eval_test:
         postfixes.append("test/")
     results = {}
-    programs = make_programs(cfg.glint_threshold, compute_dtype, device)
+    programs = make_programs(cfg.glint_threshold, compute_dtype, device, mesh)
 
     for postfix in postfixes:
         print(f"loading {postfix[:-1]} set...")
@@ -316,20 +352,23 @@ def main(argv: list[str] | None = None):
             for nst_epoch in args.nst_epochs:
                 save_dir = f"saved/openeds2020/sw_{sw}_epoch_{nst_epoch}/{postfix}"
                 done_marker = os.path.join(save_dir, "done.json")
+                barrier(mesh)  # rank 0's markers are written before any rank reads them
                 if sweep_done(done_marker, sweep_config, defaults=WorkloadConfig().to_dict()) and not args.rerun:
                     print(f"[sweep] {save_dir} already complete, skipping")
                     continue
-                prepare_dir(save_dir, idempotent=True)
-                np.save(f"{save_dir}gts.npy", labels)
+                if mesh.is_main:
+                    prepare_dir(save_dir, idempotent=True)
+                    np.save(f"{save_dir}gts.npy", labels)
                 name = f"seed {cfg.seed} sw {sw} epoch {nst_epoch} test"
-                logger = MetricLogger(cfg.project, name, cfg.to_dict())
+                logger = MetricLogger(cfg.project, name, cfg.to_dict(), enabled=mesh.is_main)
                 log = iris_style_transfer_openeds2020(
                     cfg, images, labels, eff_params, g1_params, g2_params, vgg_params, s_iris,
                     cfg.c_loss_weight, sw, nst_epoch, postfix, save_dir, logger, device,
-                    programs=programs,
+                    programs=programs, mesh=mesh,
                 )
                 logger.finish()
-                write_sweep_marker(done_marker, sweep_config, log)
+                if mesh.is_main:
+                    write_sweep_marker(done_marker, sweep_config, log)
                 results[(postfix, sw, nst_epoch)] = log
     return results
 

@@ -202,7 +202,8 @@ def test_port_imports_no_jax():
     code = (
         "import sys\n"
         "import iris_style_transfer_tpu_torch\n"
-        "from iris_style_transfer_tpu_torch import data, models, ops, pipelines, runtime, transfer, utils\n"
+        "from iris_style_transfer_tpu_torch import data, models, ops, parallel, pipelines, runtime, transfer, utils\n"
+        "from iris_style_transfer_tpu_torch.parallel import mesh\n"
         "from iris_style_transfer_tpu_torch.workloads import ist_openeds2019, ist_openeds2020\n"
         "from iris_style_transfer_tpu_torch.workloads import gaze_estimation, iris_classification\n"
         "from iris_style_transfer_tpu_torch.demos import iris_nst_demo, nst_demo\n"
