@@ -35,15 +35,20 @@ exit:
                tensor-core kernel), a Gram-loss closure (the Gram's
                tensor-core kernel; an f32 Gram its CUDA-core one) and a B7
                U-Net apply launch them.
-  3b. connected — the union-find labelling (``ops/connected.py``) bit-exact
-               against its plain version at (64, 400, 640), both
-               connectivities: RITnet's iris masks of 64 twin frames, noise
-               at 0.3, 0.45 and 0.6, a serpentine, all false, all true, B =
-               1; the lower label on a tie; then, launches counted,
-               ``mask_and_crop_iris(use_area_opening=True)`` at bs 64,
-               ``extract_eye_landmarks(select_largest=True)`` and
+  3b. connected — the union-find labelling (``ops/connected.py``; tile,
+               seam and finalize kernels), its labels and its fused
+               per-label areas bit-exact against the plain version at (64,
+               400, 640), both connectivities: RITnet's iris masks of 64
+               twin frames, noise at 0.3, 0.45 and 0.6, a serpentine, all
+               false, all true, B = 1, ragged tiles ((64, 401, 639), (3, 1,
+               640), (3, 400, 1)), stripes on the tile seams and a
+               checkerboard; the lower label on a tie; then, launches
+               counted, ``mask_and_crop_iris(use_area_opening=True)`` at bs
+               64, ``extract_eye_landmarks(select_largest=True)`` and
                ``GazeEstimator1Complicated`` at bs 8, against the CPU path;
-               the kernel's time against the plain version's and its bound.
+               the kernel's time, labels only and with areas, against the
+               plain version's and the two bounds, and largest_component
+               and area_opening end to end.
   4. nst     — the production NST loop (bf16 compute, bf16 L-BFGS history,
                m = 10) at (64, 3, 224, 224) on seeded VGG19 weights, once
                with the classic BN taps and once with the stats taps (their
@@ -150,6 +155,9 @@ TAPS_512 = ((4, 64, 512, 512), (4, 128, 256, 256), (4, 256, 128, 128), (4, 512, 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 TRAIN_USERS, TRAIN_FRAMES_PER_USER = 8, 40  # the trainer's twin: 4 steps per epoch at bs 64
+# first on every main's command line: one process, however many cards the host
+# has (--n_devices 0 spawns a rank per card); a later --n_devices N wins
+ONE_PROCESS = ("--n_devices", "1")
 
 
 def _log(phase: str, msg: str) -> None:
@@ -940,17 +948,37 @@ def _serpentine(h: int, w: int):
     return m
 
 
+def _seam_masks(b: int, h: int, w: int) -> list:
+    """Masks on the card whose components cross the kernel's tile seams:
+    one-pixel stripes on both sides of every seam, and a checkerboard."""
+    import torch
+    from iris_style_transfer_tpu_torch.ops import connected as cc
+
+    m = torch.zeros((h, w), dtype=torch.bool)
+    for y in range(cc.TILE_H, h, cc.TILE_H):
+        m[y - 1, 1::3] = m[y, ::2] = True
+    for x in range(cc.TILE_W, w, cc.TILE_W):
+        m[::2, x - 1] = m[1::3, x] = True
+    board = (torch.arange(h)[:, None] + torch.arange(w)[None, :]) % 2 == 0
+    return [("seam stripes", m.expand(b, h, w).contiguous().cuda()),
+            ("checkerboard", board.expand(b, h, w).contiguous().cuda())]
+
+
 def phase_connected(card: str) -> dict:
-    """The union-find labelling (``ops/csrc/connected.cu``) against its
-    plain version on the card, bit-exact at both connectivities: RITnet's
-    iris masks of 64 twin frames, seeded noise at 0.3, 0.45 and 0.6, a
-    serpentine, all-false and all-true, B = 1 and 64; the tie rule of
-    largest_component; then the paths that wait on it at full width, each
-    against the port's CPU path: mask_and_crop_iris(use_area_opening=True)
-    at bs 64, extract_eye_landmarks(select_largest=True) on RITnet's
-    segmentations, GazeEstimator1Complicated at bs 8; launches counted over
-    those paths; the kernel's time against the plain version's and its
-    bound."""
+    """The union-find labelling (``ops/csrc/connected.cu``: tile, seam,
+    finalize) against its plain version on the card, labels and the fused
+    per-label areas bit-exact at both connectivities: RITnet's iris masks of
+    64 twin frames, seeded noise at 0.3, 0.45 and 0.6, a serpentine,
+    all-false and all-true, B = 1 and 64, ragged tiles ((64, 401, 639),
+    (3, 1, 640), (3, 400, 1)), stripes on the tile seams and a
+    checkerboard; the tie rule of largest_component; then the paths that
+    wait on it at full width, each against the port's CPU path:
+    mask_and_crop_iris(use_area_opening=True) at bs 64,
+    extract_eye_landmarks(select_largest=True) on RITnet's segmentations,
+    GazeEstimator1Complicated at bs 8; launches counted over those paths;
+    the kernel's time, labels only and with areas, against the plain
+    version's and the two bounds, and largest_component and area_opening
+    end to end."""
     import torch
     from iris_style_transfer_tpu_torch.data import synthetic_eye_batch
     from iris_style_transfer_tpu_torch.models import GazeEstimator1Complicated, RITnet
@@ -975,20 +1003,28 @@ def phase_connected(card: str) -> dict:
         cases += [("serpentine", _serpentine(CC_H, CC_W).cuda()),
                   ("all false", torch.zeros(full, dtype=torch.bool, device="cuda")),
                   ("all true", torch.ones(full, dtype=torch.bool, device="cuda"))]
+        cases += [("ragged tiles, noise 0.45", torch.rand(shape, generator=gen, device="cuda") < 0.45)
+                  for shape in ((CC_FRAMES, CC_H + 1, CC_W - 1), (3, 1, CC_W), (3, CC_H, 1))]
+        cases += _seam_masks(4, CC_H, CC_W)
         err = 0
         for what, m in cases:
             for conn in (1, 2):
-                lab_k = cc._kernel(m, conn)
+                lab_k = cc.connected_components(m, conn)
+                lab_a, areas_k = cc.connected_components_with_areas(m, conn)
                 lab_p = cc.connected_components_plain(m, conn)
+                areas_p = cc._areas(lab_p)
                 torch.cuda.synchronize()
-                err = max(err, int((lab_k - lab_p).abs().max()))
-                if not torch.equal(lab_k, lab_p):
-                    bad = int((lab_k != lab_p).sum())
+                err = max(err, int((lab_k - lab_p).abs().max()), int((lab_a - lab_p).abs().max()),
+                          int((areas_k - areas_p).abs().max()))
+                if not (torch.equal(lab_k, lab_p) and torch.equal(lab_a, lab_p) and torch.equal(areas_k, areas_p)):
+                    bad = int((lab_k != lab_p).sum()), int((lab_a != lab_p).sum()), int((areas_k != areas_p).sum())
                     raise AssertionError(f"connected_components kernel != plain on {what} {tuple(m.shape)}, "
-                                         f"connectivity {conn}: {bad} labels differ")
+                                         f"connectivity {conn}: {bad[0]} labels, {bad[1]} labels of the area call "
+                                         f"and {bad[2]} areas differ")
                 roots = torch.arange(1, m[0].numel() + 1, device="cuda").view(m.shape[1:])
                 n = int((lab_k == roots).sum())  # a component's root pixel carries its own index + 1
-                _log("connected", f"{what} {tuple(m.shape)} connectivity {conn}: bit-exact, {n} components")
+                _log("connected", f"{what} {tuple(m.shape)} connectivity {conn}: labels and areas bit-exact, "
+                     f"{n} components, largest {int(areas_k[:, 1:].max()) if areas_k.numel() > 1 else 0} pixels")
         two = torch.zeros((1, 20, 24), dtype=torch.bool, device="cuda")
         two[0, 2:6, 15:19] = True
         two[0, 10:14, 3:7] = True
@@ -1037,13 +1073,20 @@ def phase_connected(card: str) -> dict:
     timed = {}
     for what, m in [("RITnet iris masks", iris)] + [c for c in cases if c[0] in ("noise 0.45", "all true")]:
         for conn in (2, 1):
-            lab = cc._kernel(m, conn)
+            lab, areas = cc.connected_components_with_areas(m, conn)
             t = _turns({"plain": lambda: cc.connected_components_plain(m, conn),
-                        "kernel": lambda: cc._kernel(m, conn)})
+                        "kernel": lambda: cc.connected_components(m, conn),
+                        "kernel with areas": lambda: cc.connected_components_with_areas(m, conn),
+                        "largest_component": lambda: cc.largest_component(m, conn),
+                        "area_opening": lambda: cc.area_opening(m, CC_AREA, conn)})
             t["bound"] = _bound(_nbytes(m, lab))
+            t["bound areas"] = _bound(_nbytes(m, lab) + lab.numel() * 4)  # + each pixel's area entry written
             _log("connected", f"{what} {tuple(m.shape)} connectivity {conn} ms/call on {card}: kernel "
                  f"{t['kernel']:.4f} (plain {t['plain']:.4f}); bound {t['bound'][0]:.4f} ms by {t['bound'][1]} "
-                 f"({100 * t['bound'][0] / t['kernel']:.1f}% of it); no library call computes it")
+                 f"({100 * t['bound'][0] / t['kernel']:.1f}% of it); with areas {t['kernel with areas']:.4f}, bound "
+                 f"{t['bound areas'][0]:.4f} ({100 * t['bound areas'][0] / t['kernel with areas']:.1f}%); "
+                 f"largest_component {t['largest_component']:.4f}, area_opening {t['area_opening']:.4f}; "
+                 "no library call computes it")
             timed[(what, conn)] = t
     ms = timed[("RITnet iris masks", 2)]
     _log("connected", f"phase took {time.perf_counter() - t_phase:.1f} s")
@@ -1204,7 +1247,8 @@ def _run_main(wl, argv: list[str], counters: tuple[dict, ...], data_dir: str | N
         try:
             _reset(counters)
             t0 = time.perf_counter()
-            results = wl.main([*argv, "--data_dir", data_dir or os.path.join(tmp, "no_data"), "--device", "cuda"])
+            results = wl.main([*ONE_PROCESS, *argv, "--data_dir", data_dir or os.path.join(tmp, "no_data"),
+                               "--device", "cuda"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {k: v for counts in counters for k, v in counts.items()}
@@ -1307,7 +1351,7 @@ def _train_run(main, argv: list[str], counters) -> tuple[dict, dict, float, floa
     torch.cuda.reset_peak_memory_stats()
     _reset(counters)
     t0 = time.perf_counter()
-    log = main([*argv, "--device", "cuda"])
+    log = main([*ONE_PROCESS, *argv, "--device", "cuda"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: v for counts in counters for k, v in counts.items()}
@@ -1362,8 +1406,8 @@ def phase_train2019(card: str):
             ckpt = os.path.join(tmp, "saved", "checkpoints", "iris_classification")
             if not os.path.exists(os.path.join(ckpt, "step_00000002.npz")):
                 raise AssertionError(f"the trainer wrote no step_00000002.npz under {ckpt}")
-            results = ist.main(["-bs", "64", "--nst_epochs", str(MAIN_CLOSURES), "-path1", ckpt, "-path2", ckpt,
-                                *nodata, "--device", "cuda"])
+            results = ist.main([*ONE_PROCESS, "-bs", "64", "--nst_epochs", str(MAIN_CLOSURES), "-path1", ckpt,
+                                "-path2", ckpt, *nodata, "--device", "cuda"])
             log = results[("test/", 1.0, MAIN_CLOSURES)]
             for k in ("test/pre/c1/accu", "test/pre/c2/accu"):
                 if k not in log or not math.isfinite(log[k]):
@@ -1927,7 +1971,7 @@ def _nodata_main(wl, argv: list[str], where: str, arrays: bool = True) -> dict:
         wl.cached_nst_program = capturing
     try:
         _reset(_counters())
-        results = wl.main([*argv, "--data_dir", os.path.join(where, "no_data"), "--device", "cuda"])
+        results = wl.main([*ONE_PROCESS, *argv, "--data_dir", os.path.join(where, "no_data"), "--device", "cuda"])
         torch.cuda.synchronize()
         launches = {k: v for counts in _counters() for k, v in counts.items()}
         arrays = {f: np.load(os.path.join(root, f)) for root, _, files in os.walk(where) if arrays for f in files

@@ -5,7 +5,9 @@ Counterpart of ``iris_style_transfer_tpu/ops/connected.py``, whose
 labelling is min-label propagation inside a ``lax.while_loop`` (not a
 Pallas kernel).  Here a CUDA tensor is labelled by the hand-written
 union-find kernel of ``ops/csrc/connected.cu`` (three launches a call:
-init, merge, finalize); a CPU tensor takes :func:`connected_components_plain`.
+tile, seam, finalize), which can also count each label's pixels
+(:func:`connected_components_with_areas`); a CPU tensor takes
+:func:`connected_components_plain` (and ``_areas``' scatter).
 Both give the converged labelling: int32 labels, 0 for background, and for
 a foreground pixel 1 + the least per-image linear index of its component.
 That equals the JAX loop's labels wherever the loop converges within its
@@ -28,10 +30,11 @@ import torch.nn.functional as F
 from .cuda_build import load_library
 
 SOURCE = "connected.cu"
-KERNELS_PER_CALL = 3  # init, merge, finalize
-# kernel launches in this process: connected_components adds
-# KERNELS_PER_CALL per call on a CUDA tensor and nothing else touches it
-# except callers resetting it
+TILE_H, TILE_W = 32, 64  # connected.cu's kTH x kTW: the pixels one block labels in shared memory
+KERNELS_PER_CALL = 3  # tile, seam, finalize
+# kernel launches in this process: connected_components and
+# connected_components_with_areas add KERNELS_PER_CALL per call on a CUDA
+# tensor and nothing else touches it except callers resetting it
 LAUNCHES = {"connected_components": 0}
 
 _lib = None
@@ -42,7 +45,7 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = load_library(SOURCE)
         i64, vp = ctypes.c_int64, ctypes.c_void_p
-        lib.connected_components.argtypes = [vp, vp, i64, i64, i64, ctypes.c_int, vp]
+        lib.connected_components.argtypes = [vp, vp, vp, vp, vp, i64, i64, i64, ctypes.c_int, vp]
         lib.connected_components.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -59,22 +62,32 @@ def _check(mask: torch.Tensor, connectivity: int) -> tuple[int, int, int]:
     return b, h, w
 
 
-def _kernel(mask: torch.Tensor, connectivity: int) -> torch.Tensor:
+def _kernel(mask: torch.Tensor, connectivity: int, with_areas: bool = False):
+    """The labels, and with ``with_areas`` the (B, H * W + 1) pixel counts
+    by label, from the kernel; returns (labels, areas or None)."""
     b, h, w = _check(mask, connectivity)
     m = (mask if mask.dtype == torch.bool else mask != 0).contiguous()
-    labels = torch.empty((b, h, w), dtype=torch.int32, device=mask.device)
+    dev = mask.device
+    labels = torch.empty((b, h, w), dtype=torch.int32, device=dev)
     if m.numel() == 0:
-        return labels
-    if (m.numel() + 255) // 256 >= 2**31:
+        return labels, (torch.zeros((b, h * w + 1), dtype=torch.int32, device=dev) if with_areas else None)
+    tiles = b * -(-h // TILE_H) * -(-w // TILE_W)
+    if max(tiles, (m.numel() + 255) // 256) >= 2**31:
         raise ValueError(f"connected_components: {m.numel()} pixels need more than 2^31 - 1 blocks")
+    areas = torch.empty((b, h * w + 1), dtype=torch.int32, device=dev) if with_areas else None
+    # two bytes a tile: a seam linked one of its roots; it has foreground on
+    # its first row or column; with areas, a bit a pixel: the tile roots
+    flags = torch.empty(2 * tiles, dtype=torch.uint8, device=dev)
+    rootbits = torch.empty(tiles * TILE_H * TILE_W // 32, dtype=torch.int32, device=dev) if with_areas else None
     lib = _library()
-    with torch.cuda.device(mask.device):
-        err = lib.connected_components(m.data_ptr(), labels.data_ptr(), b, h, w, int(connectivity == 2),
-                                       torch.cuda.current_stream(mask.device).cuda_stream)
+    with torch.cuda.device(dev):
+        err = lib.connected_components(m.data_ptr(), labels.data_ptr(), areas.data_ptr() if with_areas else None,
+                                       rootbits.data_ptr() if with_areas else None, flags.data_ptr(), b, h, w,
+                                       int(connectivity == 2), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"connected_components launch failed with CUDA error {err}")
     LAUNCHES["connected_components"] += KERNELS_PER_CALL
-    return labels
+    return labels, areas
 
 
 def _neighbour_min(lab: torch.Tensor, big: int, connectivity: int) -> torch.Tensor:
@@ -117,34 +130,49 @@ def connected_components(mask: torch.Tensor, connectivity: int = 2) -> torch.Ten
     """Label the components of each (B, H, W) mask: the kernel for a CUDA
     tensor, the plain version for a CPU tensor; int32 labels."""
     if mask.device.type == "cuda":
-        return _kernel(mask, connectivity)
+        return _kernel(mask, connectivity)[0]
     if mask.device.type == "cpu":
         return connected_components_plain(mask, connectivity)
     raise ValueError(f"connected_components: unsupported device {mask.device}")
 
 
 def _areas(lab: torch.Tensor) -> torch.Tensor:
-    """(B, H * W + 2) int32 pixel counts per label (the JAX scatter-add)."""
+    """(B, H * W + 1) int32 pixel counts by label (the JAX scatter-add),
+    with the background's entry 0 at 0."""
     b, h, w = lab.shape
     flat = lab.reshape(b, h * w).long()
-    areas = torch.zeros((b, h * w + 2), dtype=torch.int32, device=lab.device)
-    return areas.scatter_add_(1, flat, torch.ones_like(flat, dtype=torch.int32))
+    areas = torch.zeros((b, h * w + 1), dtype=torch.int32, device=lab.device)
+    areas.scatter_add_(1, flat, torch.ones_like(flat, dtype=torch.int32))
+    areas[:, 0] = 0
+    return areas
+
+
+def connected_components_with_areas(mask: torch.Tensor, connectivity: int = 2) -> tuple[torch.Tensor, torch.Tensor]:
+    """(labels, areas): the labels of :func:`connected_components` and each
+    label's pixel count, (B, H * W + 1) int32 indexed by label (entry 0, the
+    background, is 0).  A CUDA tensor takes the kernel, which counts in its
+    tile and finalize passes; a CPU tensor the plain labelling and a
+    scatter-add."""
+    if mask.device.type == "cuda":
+        return _kernel(mask, connectivity, with_areas=True)
+    if mask.device.type == "cpu":
+        lab = connected_components_plain(mask, connectivity)
+        return lab, _areas(lab)
+    raise ValueError(f"connected_components: unsupported device {mask.device}")
 
 
 def largest_component(mask: torch.Tensor, connectivity: int = 2) -> torch.Tensor:
     """(B, H, W) bool: each mask's largest component; on a tie the lowest
     label wins (``argmax``'s first maximum), and an empty mask stays empty."""
-    lab = connected_components(mask, connectivity)
-    areas = _areas(lab)
-    areas[:, 0] = 0  # background
-    best = areas.argmax(dim=1)[:, None, None]
-    return (lab == best) & (best > 0)
+    lab, areas = connected_components_with_areas(mask, connectivity)
+    best = areas.argmax(dim=1).to(torch.int32)  # int32, as the labels: no promotion of the compare
+    return lab == torch.where(best > 0, best, -1)[:, None, None]  # -1: no label, so an empty mask stays empty
 
 
 def area_opening(mask: torch.Tensor, area_threshold: int = 500, connectivity: int = 2) -> torch.Tensor:
     """Remove the components smaller than ``area_threshold`` pixels from each
     (B, H, W) mask (skimage's ``area_opening`` on binary masks)."""
-    lab = connected_components(mask, connectivity)
+    lab, areas = connected_components_with_areas(mask, connectivity)
     b, h, w = lab.shape
-    keep = _areas(lab).gather(1, lab.reshape(b, h * w).long()).view(b, h, w) >= area_threshold
-    return mask.bool() & keep & (lab > 0)
+    keep = areas.gather(1, lab.reshape(b, h * w).long()).view(b, h, w) >= area_threshold
+    return mask.bool() & keep  # the labels are > 0 exactly where the mask is set

@@ -5,6 +5,11 @@ dataclass and flags, so a command line of the JAX workload parses here.
 ``--n_devices N > 1`` runs a main data-parallel on N ranks
 (:func:`spawns_ranks`, :func:`run_on_ranks`, :func:`main_mesh`); under
 ``torchrun`` the launcher's environment says the ranks instead.
+``--n_devices 0``, the default, means every device, as in the JAX
+package: on a CUDA device outside a process group the main spawns one
+rank per visible card (``torch.cuda.device_count()``) when there are two
+or more, and runs as one process on one card; on the CPU it is one
+process.
 ``--scan_unroll`` only shapes the TPU program and has no effect here.  Nor
 does ``--pallas_gram``: the
 IST mains never use the Gram loss, and on a CUDA device the Gram always
@@ -120,18 +125,29 @@ def _in_process_group() -> bool:
     return dist.is_initialized() or "WORLD_SIZE" in os.environ
 
 
-def spawns_ranks(cfg: WorkloadConfig) -> bool:
-    """True when ``--n_devices N > 1`` asks for ranks that no process group
-    or launcher provides: the main then runs itself on N spawned ranks."""
-    return cfg.n_devices > 1 and not _in_process_group()
+def _ranks(cfg: WorkloadConfig, device: torch.device) -> int:
+    """The ranks a run asks for: ``--n_devices``, or with 0 every visible
+    card of a CUDA device (one on the CPU)."""
+    if cfg.n_devices == 0 and device.type == "cuda":
+        return torch.cuda.device_count()
+    return cfg.n_devices
+
+
+def spawns_ranks(cfg: WorkloadConfig, device: torch.device) -> bool:
+    """True when the run asks for more than one rank (``--n_devices N > 1``,
+    or ``--n_devices 0`` on a CUDA device with two or more visible cards)
+    and no process group or launcher provides them: the main then runs
+    itself on that many spawned ranks."""
+    return not _in_process_group() and _ranks(cfg, device) > 1
 
 
 def run_on_ranks(main, argv, cfg: WorkloadConfig, device: torch.device):
-    """``main(argv)`` on ``cfg.n_devices`` ranks spawned on this host (one
-    card each, or all on the CPU); returns rank 0's result."""
+    """``main(argv)`` on the ranks :func:`spawns_ranks` counts, spawned on
+    this host (one card each, or all on the CPU); returns rank 0's result."""
     argv = list(sys.argv[1:] if argv is None else argv)
-    devices = None if device.type == "cuda" else [device] * cfg.n_devices
-    return run_ranks(functools.partial(main, argv), cfg.n_devices, devices=devices)
+    n = _ranks(cfg, device)
+    devices = None if device.type == "cuda" else [device] * n
+    return run_ranks(functools.partial(main, argv), n, devices=devices)
 
 
 def main_mesh(cfg: WorkloadConfig, device: torch.device) -> Mesh:

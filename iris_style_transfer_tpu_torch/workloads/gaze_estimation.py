@@ -27,11 +27,14 @@ are averaged over the data group before Adam, the dropout masks are the
 whole batch's, cut to the block, and the predictions are gathered.  All
 BatchNorm on the path (ResNet50's) is in inference mode, as in JAX, so no
 batch statistics need reducing.  Rank 0 alone logs and writes checkpoints.
+The mesh is data-only, as the JAX main's: ``--model_parallel N`` is
+accepted, says in one line that it has no effect, and changes nothing.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 
 import numpy as np
@@ -241,11 +244,11 @@ def main(argv: list[str] | None = None):
         raise SystemExit(f"-estimator must be 1 or 2, got {cfg.estimator}")
     device = resolve_device(args.device)
     if cfg.model_parallel > 1:
-        raise SystemExit("--model_parallel > 1: the gaze estimators have no tensor-parallel split (the JAX "
-                         "main runs them on a data-only mesh); use --n_devices (ROADMAP §1 item 10)")
-    if spawns_ranks(cfg):
+        print(f"--model_parallel {cfg.model_parallel} has no effect on this main: the gaze estimators run on a "
+              "data-only mesh, as in the JAX main", flush=True)
+    if spawns_ranks(cfg, device):
         return run_on_ranks(main, argv, cfg, device)
-    mesh = main_mesh(cfg, device)
+    mesh = main_mesh(dataclasses.replace(cfg, model_parallel=1), device)
     return gaze_estimation(cfg, mesh.device, effnet_weights=args.effnet_weights, resnet_weights=args.resnet_weights,
                            mesh=mesh)
 

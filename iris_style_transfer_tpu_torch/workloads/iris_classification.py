@@ -224,7 +224,7 @@ def main(argv: list[str] | None = None):
                         help="torch device to run on; a CUDA request without CUDA fails")
     cfg, args = parse_config(parser, defaults, argv)
     device = resolve_device(args.device)
-    if spawns_ranks(cfg):
+    if spawns_ranks(cfg, device):
         return run_on_ranks(main, argv, cfg, device)
     mesh = main_mesh(cfg, device)
     cfg.name = f"seed {cfg.seed} rd {cfg.rotation_degree} pd {cfg.perspect_degree} lr {cfg.lr}"

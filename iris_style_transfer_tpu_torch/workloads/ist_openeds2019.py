@@ -306,7 +306,7 @@ def main(argv: list[str] | None = None):
     if cfg.model_parallel > 1:
         raise SystemExit(f"--model_parallel > 1 shards each image's height over the model group (spatial "
                          f"sharding), which is not ported yet: {SPATIAL_ITEM}")
-    if spawns_ranks(cfg):
+    if spawns_ranks(cfg, device):
         return run_on_ranks(main, argv, cfg, device)
     mesh = main_mesh(cfg, device)
     device = mesh.device

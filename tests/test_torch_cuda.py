@@ -321,22 +321,47 @@ def _serpentine(h, w):
     return m
 
 
+def _seam_masks(h, w, th=cc.TILE_H, tw=cc.TILE_W):
+    """One-pixel stripes on both sides of every tile seam, and a
+    checkerboard, on the card."""
+    m = torch.zeros((h, w), dtype=torch.bool)
+    for y in range(th, h, th):
+        m[y - 1, 1::3] = m[y, ::2] = True
+    for x in range(tw, w, tw):
+        m[::2, x - 1] = m[1::3, x] = True
+    board = (torch.arange(h)[:, None] + torch.arange(w)[None, :]) % 2 == 0
+    return [m[None].cuda(), board[None].cuda()]
+
+
 @pytest.mark.parametrize("connectivity", [1, 2])
 def test_connected_components_kernel_is_bit_exact(cuda, connectivity):
-    """The union-find kernel against the plain labelling on the card:
-    seeded noise at three densities, a serpentine, all-false and all-true,
-    B = 1 and several; three launches a call."""
+    """The tile / seam / finalize kernel against the plain labelling on the
+    card, labels and the fused areas: seeded noise at three densities, a
+    serpentine, all-false and all-true, B = 1 and several, ragged tiles
+    (H or W off the 32 x 64 tile, an odd W that takes the byte loads, a
+    single row, a single column), stripes on the tile seams and a
+    checkerboard; three launches a call either way."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     masks = [torch.rand((4, 37, 53), generator=gen, device="cuda") < d for d in (0.3, 0.45, 0.6)]
     masks += [_serpentine(40, 64)[None].cuda(), torch.zeros((2, 9, 7), dtype=torch.bool, device="cuda"),
               torch.ones((3, 16, 24), dtype=torch.bool, device="cuda"), masks[1][:1]]
+    masks += [torch.rand(shape, generator=gen, device="cuda") < 0.45 for shape in
+              ((2, 101, 139), (3, 1, 640), (3, 400, 1), (2, 70, 160))]
+    masks += _seam_masks(96, 200) + [torch.ones((2, 100, 200), dtype=torch.bool, device="cuda")]
     for m in masks:
         before = cc.LAUNCHES["connected_components"]
         lab = cc.connected_components(m, connectivity)
         assert cc.LAUNCHES["connected_components"] == before + cc.KERNELS_PER_CALL
         assert lab.dtype == torch.int32 and lab.is_cuda
         assert torch.equal(lab, cc.connected_components_plain(m, connectivity))
+        lab_a, areas = cc.connected_components_with_areas(m, connectivity)
+        assert cc.LAUNCHES["connected_components"] == before + 2 * cc.KERNELS_PER_CALL
+        want_lab, want_areas = cc.connected_components_with_areas(m.cpu(), connectivity)
+        assert torch.equal(lab_a.cpu(), want_lab) and torch.equal(areas.cpu(), want_areas)
     two = torch.zeros((1, 20, 24), dtype=torch.bool, device="cuda")
     two[0, 2:6, 15:19] = True
     two[0, 10:14, 3:7] = True
     assert torch.equal(cc.largest_component(two, connectivity).cpu(), cc.largest_component(two.cpu(), connectivity))
+    for m in masks[:3] + masks[-3:]:
+        assert torch.equal(cc.largest_component(m, connectivity).cpu(), cc.largest_component(m.cpu(), connectivity))
+        assert torch.equal(cc.area_opening(m, 20, connectivity).cpu(), cc.area_opening(m.cpu(), 20, connectivity))

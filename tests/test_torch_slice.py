@@ -209,7 +209,7 @@ def test_port_imports_no_jax():
         "from iris_style_transfer_tpu_torch.demos import iris_nst_demo, nst_demo\n"
         "from iris_style_transfer_tpu_torch.data import fake_openeds, native_loader, openeds2020\n"
         "from iris_style_transfer_tpu_torch.tools import replicate_rotation, replicate_synthetic\n"
-        "from iris_style_transfer_tpu_torch.tools import port_weights, replicate_synthetic_gaze\n"
+        "from iris_style_transfer_tpu_torch.tools import port_weights, replicate_synthetic_gaze, time_connected\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'iris_style_transfer_tpu.'))]\n"
         "assert not bad and 'iris_style_transfer_tpu' not in sys.modules, bad\n"
         "assert not [m for m in sys.modules if m == 'tools' or m.startswith('tools.')]\n"
