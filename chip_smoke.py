@@ -111,12 +111,24 @@ exit:
                card (NCCL refuses two ranks on one card), the 2019 and 2020
                mains, the classifier trainer with ``--model_parallel 2`` and
                the gaze trainer against one process, each rank's launches as
-               derived for its half of the batch.
+               derived for its half of the batch; then the 2019 main (bs 64,
+               stats taps on) and the 2020 main (bs 128) with
+               ``--model_parallel 2`` (each NST image's H split over the two
+               ranks, the kernels on the slabs) against one process, the
+               first closures' style losses to 1e-5 and each rank's
+               launches those of one process (a model rank runs its data
+               block whole outside the NST and its slab in it); and VGG19
+               at (64, 3, 224, 224) bf16 split on H over the two ranks,
+               forward and backward, taps and gradients against one
+               process's within SPLIT_REL_TOL.
 
 ``python3 chip_smoke.py --cards N`` (N cards, N even) runs phases 1-2 and
 then ``phase_cards`` alone: the IST mains and the classifier trainer (heads
 split over 2) on N NCCL ranks, one a card, against one card, and the NST
-loop at a joint bs 64; the last two lines as below.
+loop at a joint bs 64; on four cards also the NST loop at joint bs 4 and
+64 on the (data, model) layouts 1 × 4, 2 × 2 and 4 × 1 and on
+``make_multislice_mesh(2)`` and ``(2, model_parallel=2)``, with the halo
+exchanges' share of a closure; the last two lines as below.
 
 In every main-path phase conv1 launches exactly once per VGG19 pass.
 
@@ -1097,17 +1109,23 @@ def phase_connected(card: str) -> dict:
 def _nst_loop(make_kw: dict, shape, closures: int, seed: int):
     """The NST loop at ``shape`` on seeded VGG19 weights; one warm-up
     closure, then ``closures`` under ``set_sync_debug_mode("error")``.
-    Returns (closures/s, c_hist, s_hist); fails unless finite and s_loss
-    falls."""
+    With a ``mesh`` in ``make_kw`` each rank draws the whole ``shape`` and
+    keeps its block (``spatial_sharding``: its rows of the batch, and of
+    H over a model group).  Returns (closures/s, c_hist, s_hist); fails
+    unless finite and s_loss falls."""
     import torch
     from iris_style_transfer_tpu_torch.models import VGG19
     from iris_style_transfer_tpu_torch.ops import conv1 as c1
+    from iris_style_transfer_tpu_torch.parallel import spatial_sharding
     from iris_style_transfer_tpu_torch.transfer.nst import make_nst_fn
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = VGG19.init(torch.Generator().manual_seed(SEED), device="cuda")
     c = torch.rand(shape, generator=gen, device="cuda")
     s = torch.rand(shape, generator=gen, device="cuda")
+    if make_kw.get("mesh") is not None:
+        block = spatial_sharding(make_kw["mesh"], shape)
+        c, s = c[block].contiguous(), s[block].contiguous()
     kw = dict(compute_dtype=torch.bfloat16, lbfgs_dtype=torch.bfloat16, history_size=10, **make_kw)
     make_nst_fn(epochs=1, **kw)(params, c, s)  # warm-up closure
     torch.cuda.synchronize()
@@ -2020,6 +2038,8 @@ def _rank_gloo_mains(tmp: str) -> list:
         "classifier": (iris_classification, [*CLASSIFIER_ARGS, "--model_parallel", "2"]),
         "gaze": (gaze_estimation, ["-estimator", "1", "-bs", "32", "-E", "1", "-SP", "1"]),
     }
+    runs.update({f"spatial_{name}": (wl, [*IST_RUNS[name][0], "--model_parallel", "2"])
+                 for name, wl in (("ist2019", ist_openeds2019), ("ist2020", ist_openeds2020))})
     out = {}
     for name, (wl, argv) in runs.items():
         t0 = time.perf_counter()
@@ -2027,7 +2047,72 @@ def _rank_gloo_mains(tmp: str) -> list:
         out[name]["wall"] = time.perf_counter() - t0
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, {k: v["launches"] for k, v in out.items()})
-    return [out, every]
+    t0 = time.perf_counter()
+    split = _vgg_split_errors()
+    errs = [None] * dist.get_world_size()
+    dist.all_gather_object(errs, split)
+    return [out, every, errs, time.perf_counter() - t0]
+
+
+# the direct check of VGG19 split on H over two ranks, in bf16: each tap and
+# input gradient of the slab within this share of the one-process tensor's
+# largest magnitude (the slab's convs may take other cuDNN algorithms than
+# the whole image's, each rounding its bf16 output once more or less)
+SPLIT_REL_TOL = 2e-2
+
+
+def _vgg_split_errors() -> dict:
+    """One of two ranks of a model group on the card: VGG19 (seeded,
+    truncated at relu4_2, bf16) forward and backward at (64, 3, 224, 224)
+    on this rank's slab of 112 rows, against the same on the whole image
+    in this process: the classic taps and the input gradient of a fixed
+    random weighting of them, then the stats taps' (mean, std) pairs and
+    the input gradient of their sum.  Returns each tensor's largest
+    deviation over its largest magnitude, on this rank's rows."""
+    import torch
+    from iris_style_transfer_tpu_torch.models import VGG19
+    from iris_style_transfer_tpu_torch.parallel import make_mesh, spatial_sharding
+
+    mesh = make_mesh(model_parallel=2)
+    shape = (64, 3, 224, 224)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    x_all = torch.rand(shape, generator=gen, device="cuda")
+    params = VGG19.cast(VGG19.init(torch.Generator().manual_seed(SEED), device="cuda"), torch.bfloat16)
+    names = ("relu4_2", "relu1_1", "relu2_1", "relu3_1", "relu4_1")
+    j = mesh.model_index
+    weights: dict = {}
+
+    def mine(t, whole: bool):
+        """This rank's rows of a whole-image tensor (H at dim 2)."""
+        h = t.shape[2] // 2
+        return t[:, :, j * h:(j + 1) * h] if whole else t
+
+    def run(x, m):
+        whole = m is None
+        kw = dict(content_layers=names[:1], style_layers=names[1:], compute_dtype=torch.bfloat16, truncate=True,
+                  mesh=m)
+        x = x.clone().requires_grad_(True)
+        _, content, style = VGG19.apply(params, x, **kw)
+        taps = [*content, *style]
+        loss = 0.0
+        for i, t in enumerate(taps):  # one weighting of each whole tap, drawn once; this block's rows of it
+            w = weights.setdefault(i, torch.rand((t.shape[0], t.shape[1], t.shape[2] * (1 if whole else 2),
+                                                  t.shape[3]), generator=gen, device="cuda"))
+            loss = loss + (t.float() * (w if whole else mine(w, True))).sum()
+        (g,) = torch.autograd.grad(loss, x)
+        x2 = x.detach().clone().requires_grad_(True)
+        _, _, pairs = VGG19.apply(params, x2, stats_taps=True, **kw)
+        stats = [t for pair in pairs for t in pair]
+        (g2,) = torch.autograd.grad(sum(t.sum() for t in stats), x2)
+        rows = [mine(t.detach(), whole) for t in (*taps, g, g2)]
+        return rows, stats
+
+    got, got_stats = run(x_all[spatial_sharding(mesh, shape)], mesh)
+    want, want_stats = run(x_all, None)
+    labels = [*names, "taps' input gradient", "stats taps' input gradient"]
+    labels += [f"{n} {k}" for n in names[1:] for k in ("mean", "std")]
+    return {what: ((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
+            for what, g, w in zip(labels, [*got, *got_stats], [*want, *want_stats])}
 
 
 def _compare_metrics(where: str, got: dict, want: dict, tol) -> float:
@@ -2078,13 +2163,15 @@ def _train_twin(wl) -> None:
 
 
 def _check_ranks(phase: str, where: str, name: str, run: dict, every: list, want_log: dict, want_launches: dict,
-                 want_hists: list | None) -> None:
+                 want_hists: list | None, s_rtol: float = 1e-4) -> None:
     """Rank 0's ``run`` of main ``name`` against one process's log (and, for
-    an IST main, its NST histories), as :func:`phase_parallel` holds them;
-    every rank's launches (``every``) against ``want_launches``."""
+    an IST main, its NST histories), as :func:`phase_parallel` holds them,
+    the first closures' style losses to ``s_rtol``; every rank's launches
+    (``every``) against ``want_launches``."""
     import torch
 
-    key = IST_RUNS[name][1] if name in IST_RUNS else None
+    main = name.removeprefix("spatial_")
+    key = IST_RUNS[main][1] if main in IST_RUNS else None
     got_log = run["results"][key] if key else run["results"]
     final = {}
     if key:
@@ -2092,14 +2179,19 @@ def _check_ranks(phase: str, where: str, name: str, run: dict, every: list, want
         if len(run["hists"]) != len(want_hists):
             raise AssertionError(f"{where}: {len(run['hists'])} NST calls, {len(want_hists)} in one process")
         k = AGREEING_CLOSURES
+        part = {"c": 0.0, "s": 0.0}  # the first k closures' largest relative deviations, for the log
         for (c2, s2), (c1, s1) in zip(run["hists"], want_hists):
-            agree = torch.allclose(c2[:k], c1[:k], rtol=5e-2, atol=1e-12) and torch.allclose(s2[:k], s1[:k], rtol=1e-4)
+            agree = torch.allclose(c2[:k], c1[:k], rtol=5e-2, atol=1e-12) and torch.allclose(s2[:k], s1[:k], rtol=s_rtol)
             if not agree:
                 raise AssertionError(f"{where}: the first {k} closures' losses part: c {c2[:k].tolist()} / "
                                      f"{c1[:k].tolist()}, s {s2[:k].tolist()} / {s1[:k].tolist()}")
+            for n, (a, b) in (("c", (c2, c1)), ("s", (s2, s1))):
+                dev = ((a[:k].double() - b[:k].double()).abs() / b[:k].double().abs().clamp_min(1e-30)).max()
+                part[n] = max(part[n], dev.item())
         rate = next(k for k in want_log if k.endswith("stylized_images_per_min"))
         pipe = next(k for k in want_log if k.endswith("pipeline_images_per_min"))
-        final = {"c": (run["hists"][0][0][-1].item(), want_hists[0][0][-1].item()),
+        final = {f"first {k} closures' relative deviation": part,
+                 "c": (run["hists"][0][0][-1].item(), want_hists[0][0][-1].item()),
                  "s": (run["hists"][0][1][-1].item(), want_hists[0][1][-1].item()),
                  "stylized_images_per_min": (got_log[rate], want_log[rate]),
                  "pipeline_images_per_min": (got_log[pipe], want_log[pipe])}
@@ -2142,7 +2234,16 @@ def phase_parallel(card: str, classifier: dict, gaze_log: dict) -> None:
     noise, and a batch split, which sums in another order, sends the loop
     on another trajectory; the NST losses and the post-NST metrics are then
     only required finite.  The trainers as :func:`_trainer_tol` holds them.
-    Each rank's launches as derived for its half of the batch."""
+    Each rank's launches as derived for its half of the batch.
+
+    gloo, world size 2 on cuda:0 as one model group (``--model_parallel
+    2``): the 2019 main (stats taps on) and the 2020 main against the same
+    runs in this process, as above but with the first closures' style
+    losses to rtol 1e-5; each rank runs its data block (the whole batch)
+    outside the NST and its slab of 112 rows in it, so its launches are
+    one process's, and relu_stats' are derived as 4 x (closures + 2)
+    forward and 4 x closures backward an NST call.  Then VGG19 split on H
+    over the two ranks at (64, 3, 224, 224) bf16 (:func:`_vgg_split_errors`)."""
     import functools
 
     import numpy as np
@@ -2178,20 +2279,36 @@ def phase_parallel(card: str, classifier: dict, gaze_log: dict) -> None:
              f"{got['rates']}) on {card}")
 
         t0 = time.perf_counter()
-        two, every = run_ranks(functools.partial(_rank_gloo_mains, tmp), 2, devices=["cuda:0", "cuda:0"],
-                               backend="gloo", timeout=PARALLEL_JOIN_S)
+        two, every, split, split_s = run_ranks(functools.partial(_rank_gloo_mains, tmp), 2,
+                                               devices=["cuda:0", "cuda:0"], backend="gloo", timeout=PARALLEL_JOIN_S)
         wall = time.perf_counter() - t0
-    for name in ("ist2019", "ist2020", "classifier", "gaze"):
-        if name in IST_RUNS:
-            want = dict(one[name]["launches"])
-            if name == "ist2020":
+    for name in ("ist2019", "ist2020", "classifier", "gaze", "spatial_ist2019", "spatial_ist2020"):
+        main = name.removeprefix("spatial_")
+        if main in IST_RUNS:
+            want = dict(one[main]["launches"])
+            if name == "ist2020":  # half the batch a rank; a model rank runs its data block whole, as one process
                 want["dw_conv_bn_silu"] = _dw_launches(128 // 2, SEG_CHUNK)
-            base = (one[name]["results"][IST_RUNS[name][1]], want, one[name]["hists"])
+            if name == "spatial_ist2019":  # the slab's count derived: 4 taps x (closures + 2) forward, x closures back
+                calls = len(one[main]["hists"])
+                derived = {"relu_stats_fwd": 4 * (MAIN_CLOSURES + 2) * calls,
+                           "relu_stats_bwd": 4 * MAIN_CLOSURES * calls}
+                if any(want[k] != v for k, v in derived.items()):
+                    raise AssertionError(f"one process launched {want}; relu_stats {derived} derived")
+            base = (one[main]["results"][IST_RUNS[main][1]], want, one[main]["hists"])
         elif name == "classifier":
             base = (classifier["log"], classifier["launches"], None)
         else:  # estimator 1 on the twin's landmarks: none of the counted kernels
             base = (gaze_log, {k: 0 for k in every[0]["gaze"]}, None)
-        _check_ranks("parallel", f"gloo world size 2 on one card, {name}", name, two[name], every, *base)
+        where = f"gloo world size 2 on one card, {name}" + (", data 1 x model 2" if main != name else "")
+        _check_ranks("parallel", where, name, two[name], every, *base, s_rtol=1e-4 if main == name else 1e-5)
+    worst = {k: max(e[k] for e in split) for k in split[0]}
+    if not all(v <= SPLIT_REL_TOL for v in worst.values()):
+        raise AssertionError(f"VGG19 split on H over 2 ranks differs from one process: {worst} (of each tensor's "
+                             f"largest magnitude; {SPLIT_REL_TOL:g} allowed)")
+    _log("parallel", f"VGG19 (64,3,224,224) bf16 split on H over 2 gloo ranks: taps, stats taps and input "
+         f"gradients on each slab within {max(worst.values()):.3g} of the one-process tensors' largest "
+         f"magnitude (allowed {SPLIT_REL_TOL:g}): {json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})}; "
+         f"{split_s:.1f} s")
     _log("parallel", f"phase took {time.perf_counter() - t_phase:.1f} s (the two-rank runs {wall:.1f} s) on {card}")
 
 
@@ -2213,11 +2330,81 @@ def _rank_cards(tmp: str, n: int) -> list:
         t0 = time.perf_counter()
         out[name] = _nodata_main(wl, [*argv, "--n_devices", str(n)], os.path.join(tmp, name), arrays=False)
         out[name]["wall"] = time.perf_counter() - t0
-    rate = _nst_loop({"stats_taps": True, "mesh": make_mesh()}, (64 // n, 3, 224, 224), PARALLEL_NST_CLOSURES,
+    rate = _nst_loop({"stats_taps": True, "mesh": make_mesh()}, (64, 3, 224, 224), PARALLEL_NST_CLOSURES,
                      SEED + 1)[0]
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, {k: v["launches"] for k, v in out.items()})
-    return [out, every, rate]
+    return [out, every, rate, _rank_layouts() if n == 4 else None]
+
+
+# --cards 4: the NST loop (stats taps) at each joint batch over each
+# (data, model) layout of four cards, and on the multislice meshes
+CARD_LAYOUTS = ((1, 4), (2, 2), (4, 1))
+LAYOUT_BATCHES = (4, 64)
+LAYOUT_CLOSURES = 50
+HALO_TRACE_CLOSURES = 3
+
+
+def _rank_layouts() -> dict:
+    """One of four NCCL ranks: closures/s and the first closure's s_loss
+    of the NST loop at each of LAYOUT_BATCHES on each of CARD_LAYOUTS and on
+    ``make_multislice_mesh(2)`` and ``(2, model_parallel=2)``; for each
+    layout with a model group, every rank's :func:`_halo_split` (the
+    ``all_gather`` kernels are a closure's only ones, and their device time
+    holds NCCL's wait for the last rank), traced once on every rank so
+    that no rank retries a collective the others do not."""
+    import functools
+
+    import torch.distributed as dist
+    from iris_style_transfer_tpu_torch.parallel import make_mesh, make_multislice_mesh
+
+    meshes = {f"data {d} x model {m}": functools.partial(make_mesh, model_parallel=m) for d, m in CARD_LAYOUTS}
+    meshes["multislice 2 x data 2 x model 1"] = functools.partial(make_multislice_mesh, 2)
+    meshes["multislice 2 x data 1 x model 2"] = functools.partial(make_multislice_mesh, 2, model_parallel=2)
+    out = {}
+    for name, make in meshes.items():
+        mesh = make()
+        for bs in LAYOUT_BATCHES:
+            shape = (bs, 3, 224, 224)
+            rate, _, s_hist = _nst_loop({"stats_taps": True, "mesh": mesh}, shape, LAYOUT_CLOSURES, SEED + 1)
+            halo = [None] * dist.get_world_size()
+            dist.all_gather_object(halo, _halo_split(mesh, shape) if mesh.shape["model"] > 1 else None)
+            out[(name, bs)] = {"rate": rate, "s0": s_hist[0].item(), "halo": halo}
+    return out
+
+
+def _halo_split(mesh, shape) -> dict:
+    """One torch.profiler trace (host and device) of HALO_TRACE_CLOSURES
+    closures on this rank's block of ``shape``, in ms a closure: the
+    traced wall time, the host time inside the halo exchanges' spans
+    (``halo_rows``, ``halo_rows_backward``) and the device time of the
+    ``all_gather`` kernels (None when the trace holds none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from iris_style_transfer_tpu_torch.models import VGG19
+    from iris_style_transfer_tpu_torch.parallel import spatial_sharding
+    from iris_style_transfer_tpu_torch.transfer.nst import make_nst_fn
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    params = VGG19.init(torch.Generator().manual_seed(SEED), device="cuda")
+    block = spatial_sharding(mesh, shape)
+    c, s = (torch.rand(shape, generator=gen, device="cuda")[block].contiguous() for _ in range(2))
+    fn = make_nst_fn(epochs=HALO_TRACE_CLOSURES, compute_dtype=torch.bfloat16, lbfgs_dtype=torch.bfloat16,
+                     stats_taps=True, mesh=mesh)
+    fn(params, c, s)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(params, c, s)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = prof.key_averages()
+    host = sum(e.cpu_time_total for e in ev if e.key in ("halo_rows", "halo_rows_backward"))
+    gathers = [e for e in _device_events(ev) if "allgather" in e.key.lower()]
+    n = HALO_TRACE_CLOSURES
+    return {"wall_ms": wall * 1e3 / n, "host_ms": host / 1e3 / n,
+            "gather_ms": sum(e.self_device_time_total for e in gathers) / 1e3 / n if gathers else None}
 
 
 def phase_cards(card: str, n: int) -> None:
@@ -2228,7 +2415,8 @@ def phase_cards(card: str, n: int) -> None:
     process, as :func:`phase_parallel` holds them; each rank's launches
     as derived for its block; stylized and pipeline images/min, train
     steps/s and the NST loop's closures/s at a joint bs 64 beside one
-    card's."""
+    card's.  On four cards, :func:`_rank_layouts`' layouts and multislice
+    meshes beside one card (:func:`_log_layouts`)."""
     import functools
 
     from iris_style_transfer_tpu_torch.parallel import run_ranks
@@ -2246,8 +2434,10 @@ def phase_cards(card: str, n: int) -> None:
         finally:
             iris_classification.synthetic_openeds2019 = real_twin
         rate1 = _nst_loop({"stats_taps": True}, (64, 3, 224, 224), PARALLEL_NST_CLOSURES, SEED + 1)[0]
-        out, every, rate = run_ranks(functools.partial(_rank_cards, tmp, n), n, backend="nccl",
-                                     timeout=PARALLEL_JOIN_S)
+        one_card = {bs: _nst_loop({"stats_taps": True}, (bs, 3, 224, 224), LAYOUT_CLOSURES, SEED + 1)
+                    for bs in LAYOUT_BATCHES}
+        out, every, rate, layouts = run_ranks(functools.partial(_rank_cards, tmp, n), n, backend="nccl",
+                                              timeout=PARALLEL_JOIN_S)
     for name in ("ist2019", "ist2020", "classifier"):
         want = dict(one[name]["launches"])
         if name == "ist2020":
@@ -2256,7 +2446,51 @@ def phase_cards(card: str, n: int) -> None:
         _check_ranks("cards", f"NCCL, {n} cards, {name}", name, out[name], every, log, want, one[name]["hists"])
     _log("cards", f"NST (64,3,224,224) stats taps, {PARALLEL_NST_CLOSURES} closures, no host sync: {rate:.2f} "
          f"closures/s on {n} cards ({64 // n} images a card), {rate1:.2f} on one card ({rate / rate1:.2f}x) on {card}")
+    if layouts is None:
+        _log("cards", f"the (data, model) layouts and the multislice meshes need 4 cards; {n} here")
+    else:
+        _log_layouts(card, one_card, layouts)
     _log("cards", f"phase took {time.perf_counter() - t_phase:.1f} s on {n} x {card}")
+
+
+# the first closure's s_loss of a layout against one card's: the same images
+# and weights, the style statistics summed in another order and, on a model
+# group, the slabs' bf16 convs perhaps by other cuDNN algorithms
+LAYOUT_S0_RTOL = 1e-2
+
+
+def _halo_text(halo: list) -> str:
+    """Every rank's :func:`_halo_split` as ranges over the ranks."""
+    if halo[0] is None:
+        return "none (no model group)"
+
+    def span(key):
+        vals = [h[key] for h in halo if h[key] is not None]
+        if not vals:
+            return "not measured"
+        shares = [100 * h[key] / h["wall_ms"] for h in halo if h[key] is not None]
+        return f"{min(vals):.3f}-{max(vals):.3f} ({min(shares):.1f}-{max(shares):.1f}%)"
+
+    walls = [h["wall_ms"] for h in halo]
+    return (f"(traced, ranks' range, of {min(walls):.3f}-{max(walls):.3f} ms a closure): host "
+            f"{span('host_ms')}, all_gather kernels {span('gather_ms')}")
+
+
+def _log_layouts(card: str, one_card: dict, layouts: dict) -> None:
+    """One line per layout and joint batch: closures/s against one card's,
+    the halo exchanges' share of a closure, the first closure's s_loss
+    against one card's (within LAYOUT_S0_RTOL, else the phase fails)."""
+    bad = []
+    for (name, bs), r in layouts.items():
+        rate1, s1 = one_card[bs][0], one_card[bs][2][0].item()
+        dev = abs(r["s0"] / s1 - 1)
+        if not dev <= LAYOUT_S0_RTOL:
+            bad.append(f"{name} bs {bs}: s_loss {r['s0']} against {s1} on one card")
+        _log("cards", f"NST stats taps, joint bs {bs}, {name}: {r['rate']:.2f} closures/s against {rate1:.2f} on "
+             f"one card ({r['rate'] / rate1:.2f}x), {LAYOUT_CLOSURES} closures; halo exchange a closure "
+             f"{_halo_text(r['halo'])}; closure 0 s_loss within {dev:.2g} of one card's; {card}")
+    if bad:
+        raise AssertionError("layouts part from one card: " + "; ".join(bad))
 
 
 def main_cards(n: int) -> int:

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.losses import style_stats
-from ..parallel.mesh import Mesh, activation_block, all_reduce
+from ..parallel.mesh import Mesh, activation_block, all_reduce, sum_over_group
 from . import layers as L
 
 STYLE_FEATURE_DIM = (64 + 128 + 256 + 512) * 2
@@ -42,18 +42,6 @@ class _CopyToModel(torch.autograd.Function):
         return all_reduce(g.clone(), ctx.group), None
 
 
-class _ReduceFromModel(torch.autograd.Function):
-    """The partial sums added over the model group; identity backward."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        return all_reduce(x.clone(), group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
 def _mlp(params: dict, x: torch.Tensor, train: bool = False, gen: torch.Generator | None = None,
          mesh: Mesh | None = None) -> torch.Tensor:
     tp = mesh is not None and mesh.shape["model"] > 1
@@ -63,7 +51,7 @@ def _mlp(params: dict, x: torch.Tensor, train: bool = False, gen: torch.Generato
     x = L.block_dropout(x, 0.5, gen, train, activation_block(mesh, x, tp))
     if tp:
         w, b = params["fc1"]["w"], params["fc1"]["b"]
-        x = _ReduceFromModel.apply(F.linear(x, w.to(x.dtype)), mesh.model_group) + b.to(x.dtype)
+        x = sum_over_group(F.linear(x, w.to(x.dtype)), mesh.model_group) + b.to(x.dtype)
     else:
         x = L.linear(x, params["fc1"])
     x = torch.relu(x)

@@ -14,6 +14,21 @@ extents take the plain pool, as in the JAX package.  ``stats_taps=True``
 computes each style tap with the fused relu+stats op
 (``ops/relu_stats.py``; on a CUDA device the hand-written kernels) and
 returns its (mean, std) pair instead of the activation.
+
+With a ``mesh`` whose model axis has m > 1 ranks (``parallel/mesh.py``,
+the port of JAX's ``spatial_sharding``), ``x`` is this rank's slab of H
+rows and every activation stays a slab: each 3x3 conv first takes one halo
+row from each neighbouring rank (``halo_rows``, zeros at the image's edges)
+and pads only W; the 2x2 pools stay within the slab, whose height must then
+be even at each pool.  conv1_1's kernel pads 1 on every side, so it runs on
+the h + 2 haloed rows and its rows 1..h are kept: no second kernel path and
+no H-padding argument in the kernel and its plain twin, for 2 extra rows a
+slab (1.8% of conv1_1 at m = 2 on a 224-px crop).  The stats taps' slab
+sums are added over the model group in one packed reduction after the
+forward, and their (mean, std) are the whole image's.  The JAX package
+takes its XLA forms under ``model_sharded`` because a ``pallas_call`` has
+no SPMD rule; here the kernels run on the slabs, computing the same
+function.
 """
 
 from __future__ import annotations
@@ -24,7 +39,8 @@ import torch
 
 from ..ops import conv1
 from ..ops.image import imagenet_normalize
-from ..ops.losses import stats_from_sums
+from ..ops.losses import stats_from_slab_sums, stats_from_sums
+from ..parallel.mesh import Mesh, halo_rows
 from . import layers as L
 
 _CFG = [
@@ -123,13 +139,17 @@ class VGG19:
         truncate: bool = False,
         bn: bool = False,
         stats_taps: bool = False,
+        mesh: Mesh | None = None,
     ):
         """x: (B, 3, H, W) in [0,1].  Returns ``(final, content_feats,
         style_feats)``; taps stay in ``compute_dtype``, ``final`` is float32.
         ``truncate=True`` stops after the deepest requested tap.
         ``stats_taps=True`` returns each style entry as its (mean, std)
         pair, (B, C) float32 each; every style layer must then be a relu
-        that is not also a content layer (else ``ValueError``)."""
+        that is not also a content layer (else ``ValueError``).  With a
+        ``mesh`` of more than one model rank, ``x`` is this rank's slab of
+        H and so are ``final`` and the tensor taps; the (mean, std) pairs
+        are the whole image's."""
         taps_wanted = set(content_layers) | set(style_layers)
         if stats_taps and not VGG19.stats_taps_eligible(style_layers, content_layers):
             raise ValueError("stats_taps=True requires every style layer to be a relu not shared "
@@ -143,13 +163,18 @@ class VGG19:
             h = h * mask.to(h.dtype)
         h = h.to(compute_dtype).contiguous(memory_format=torch.channels_last)
 
+        sharded = mesh is not None and mesh.shape["model"] > 1
         taps: dict[str, torch.Tensor] = {}
+        slab_sums: dict[str, tuple] = {}  # sharded stats taps: (s1, s2, the whole tap's H*W)
         block, conv_in_block, idx = 1, 1, 0
         fuse_next_pool = False
         for ci, c in enumerate(_CFG):
             if stop_idx is not None and idx > stop_idx:
                 break
             if c == "M":
+                if sharded and h.shape[2] % 2:
+                    raise ValueError(f"pool{block} of a slab of {h.shape[2]} rows: the 2x2 pools must stay "
+                                     "within a slab (parallel/mesh.py:height_sharding)")
                 h = L.relu_max_pool(h) if fuse_next_pool else L.max_pool(h, 2)
                 fuse_next_pool = False
                 idx += 1
@@ -160,7 +185,10 @@ class VGG19:
             bname = f"bn{block}_{conv_in_block}"
             rname = f"relu{block}_{conv_in_block}"
             if h.shape[1] <= conv1.MAX_CIN:  # conv1_1: the small-C_in kernel, as JAX's h.shape[-1] * 9 <= 128
-                h = conv1.conv1(h, params[cname])
+                h = conv1.conv1(halo_rows(h, mesh), params[cname])[:, :, 1:-1] if sharded else \
+                    conv1.conv1(h, params[cname])
+            elif sharded:
+                h = L.conv2d(halo_rows(h, mesh), params[cname], stride=1, padding=(0, 1))
             else:
                 h = L.conv2d(h, params[cname], stride=1, padding=1)
             if cname in taps_wanted:
@@ -185,7 +213,10 @@ class VGG19:
                 # the fused tap reads NHWC bytes; after the plain pools 2-3
                 # the activations are NCHW-contiguous (amax's default layout)
                 h, s1, s2 = L.relu_stats(h.contiguous(memory_format=torch.channels_last))
-                taps[rname] = stats_from_sums(s1, s2, h.shape[2] * h.shape[3])
+                if sharded:
+                    slab_sums[rname] = (s1, s2, h.shape[2] * mesh.shape["model"] * h.shape[3])
+                else:
+                    taps[rname] = stats_from_sums(s1, s2, h.shape[2] * h.shape[3])
             else:
                 h = torch.relu(h)
                 if rname in taps_wanted:
@@ -193,5 +224,9 @@ class VGG19:
             idx += 1
             conv_in_block += 1
 
+        if slab_sums:  # one reduction over the model group for every tap
+            stats = stats_from_slab_sums([v[:2] for v in slab_sums.values()], [v[2] for v in slab_sums.values()],
+                                         mesh.model_group)
+            taps.update(zip(slab_sums, stats))
         final = h.float()
         return final, [taps[n] for n in content_layers], [taps[n] for n in style_layers]

@@ -5,7 +5,9 @@ Counterpart of ``iris_style_transfer_tpu/ops/losses.py``:
   * style_loss_gram — ``0.25 * sum_i w_i * sum((G(p_i) - G_t_i)^2)``
   * style_loss_bn   — ``sum_i w_i * sum((mu_p-mu_t)^2 + (sd_p-sd_t)^2)/C_i``
     with per-channel spatial mean and Bessel-corrected std;
-    ``style_loss_bn_stats`` is the same on precomputed (mean, std) pairs.
+    ``style_loss_bn_stats`` is the same on precomputed (mean, std) pairs;
+    ``style_stats_split`` computes the pairs of an image split on H over
+    ranks from the slabs' sums.
 
 Features are NCHW; every reduction accumulates in float32.  The losses
 return device scalars and never read them back.
@@ -17,6 +19,7 @@ from typing import Sequence
 
 import torch
 
+from ..parallel.mesh import sum_over_group
 from .gram import gram_matrix
 
 
@@ -58,14 +61,36 @@ def stats_from_sums(s1: torch.Tensor, s2: torch.Tensor, n: int) -> tuple[torch.T
     return mean, torch.sqrt(var)
 
 
+def _sums(feat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel spatial (sum, sum of squares) of (B, C, H, W) features,
+    in float32."""
+    f = feat.float()
+    return f.sum(dim=(-2, -1)), (f * f).sum(dim=(-2, -1))
+
+
 def style_stats(feat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-channel spatial (mean, std) of (B, C, H, W) features -> (B, C),
     from one sum / sum-of-squares pass in float32."""
-    f = feat.float()
-    n = feat.shape[-2] * feat.shape[-1]
-    s1 = f.sum(dim=(-2, -1))
-    s2 = (f * f).sum(dim=(-2, -1))
-    return stats_from_sums(s1, s2, n)
+    return stats_from_sums(*_sums(feat), feat.shape[-2] * feat.shape[-1])
+
+
+def stats_from_slab_sums(sums: Sequence[tuple[torch.Tensor, torch.Tensor]], ns: Sequence[int],
+                         group) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """Each tap's (mean, std) from the (sum, sum of squares) of this rank's
+    slab of it: the sums of every tap added over ``group`` (the model
+    group, over whose ranks the image's H is split) in one packed
+    reduction, whose backward hands each slab the cotangent of the whole
+    image's sums; ``ns`` are the whole taps' H*W."""
+    flat = [s.reshape(-1) for pair in sums for s in pair]
+    total = sum_over_group(torch.cat(flat), group).split([t.numel() for t in flat])
+    return [stats_from_sums(total[2 * i].view_as(s1), total[2 * i + 1].view_as(s2), n)
+            for i, ((s1, s2), n) in enumerate(zip(sums, ns))]
+
+
+def style_stats_split(feats: Sequence[torch.Tensor], group, parts: int) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """:func:`style_stats` of features whose H is split over ``group``'s
+    ``parts`` ranks, each rank holding its slab (``parallel/mesh.py``)."""
+    return stats_from_slab_sums([_sums(f) for f in feats], [f.shape[-2] * f.shape[-1] * parts for f in feats], group)
 
 
 def style_loss_bn_stats(

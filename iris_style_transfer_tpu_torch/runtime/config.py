@@ -17,6 +17,11 @@ runs the hand-written kernel (``ops/blockwise_gram.py``).
 ``--stats_taps on`` takes the fused relu+stats style taps
 (``ops/relu_stats.py``); "auto" means off, as the JAX package's
 ``layers.STATS_TAPS = False`` makes it there.
+``--model_parallel m`` makes a ``(data, model)`` mesh of n/m by m ranks:
+the IST mains split each NST image's H over the model ranks
+(``parallel/mesh.py:spatial_sharding``; :func:`check_model_parallel`), the
+classifier trainer splits its heads over them, and the gaze trainer runs
+data-parallel only, as the JAX mains do.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from dataclasses import asdict, dataclass
 import torch
 import torch.distributed as dist
 
-from ..parallel.mesh import Mesh, make_mesh, run_ranks
+from ..parallel.mesh import SPATIAL_POOLS, Mesh, make_mesh, run_ranks
 
 
 def resolve_device(name: str) -> torch.device:
@@ -148,6 +153,18 @@ def run_on_ranks(main, argv, cfg: WorkloadConfig, device: torch.device):
     n = _ranks(cfg, device)
     devices = None if device.type == "cuda" else [device] * n
     return run_ranks(functools.partial(main, argv), n, devices=devices)
+
+
+def check_model_parallel(model_parallel: int, height: int) -> None:
+    """Stop an IST main whose ``--model_parallel`` cannot split its NST
+    images' ``height``: every VGG19 tap down to relu4_1 must split over the
+    model ranks, ``(height / 8) % model_parallel == 0``
+    (``parallel/mesh.py:height_sharding``), with the JAX mains' message."""
+    rows = height // 2**SPATIAL_POOLS
+    if model_parallel > 1 and rows % model_parallel:
+        ok = [str(d) for d in range(2, rows + 1) if rows % d == 0]
+        raise SystemExit(f"model_parallel={model_parallel} must divide the relu4_1 tap height {height}/8={rows} "
+                         f"(use {', '.join(ok[:-1])} or {ok[-1]})")
 
 
 def main_mesh(cfg: WorkloadConfig, device: torch.device) -> Mesh:

@@ -22,13 +22,18 @@ closure alike, go through ``ops/blockwise_gram.py``.  On a CUDA device
 both of those are the hand-written kernels.
 
 With a ``mesh`` (``parallel/mesh.py``) each rank holds its block of the
-batch, and the joint problem stays the single-device one: each rank's loss
-is its share of the global loss (the content loss is a mean over the whole
-batch, so a rank's mean is divided by the data shards; the style losses
-are sums over the batch and add as they are), so the gradient on a rank's
-pixels is its block of the global gradient, and the L-BFGS reduces its
-inner products over the data group.  The loss histories are summed over
-the data group once, after the loop.
+batch, and, with more than one model rank, its slab of each image's H rows
+(JAX's ``spatial_sharding``: the VGG19 forward exchanges halo rows, and the
+style statistics are reduced over the model group).  The joint problem
+stays the single-device one: each rank's loss is its share of the global
+loss, so the gradient on a rank's pixels is its block of the global
+gradient.  The content loss is a mean over the whole batch and every
+pixel, so a rank's mean is divided by its share count (the world size);
+the style losses are sums over the batch of functions of whole-image
+statistics, which the model ranks of one data block all compute, so they
+add over the data group.  The L-BFGS reduces its inner products over every
+rank that holds a piece of the image (the world group).  The loss
+histories are reduced once, after the loop.
 """
 
 from __future__ import annotations
@@ -40,8 +45,14 @@ import torch
 
 from ..models.vgg import VGG19
 from ..ops.blockwise_gram import gram_matrix
-from ..ops.losses import content_loss_l2, style_loss_bn, style_loss_bn_stats, style_loss_gram, style_stats
-from ..parallel.mesh import Mesh, all_reduce, batch_sharding
+from ..ops.losses import (
+    content_loss_l2,
+    style_loss_bn_stats,
+    style_loss_gram,
+    style_stats,
+    style_stats_split,
+)
+from ..parallel.mesh import Mesh, all_reduce, gather_batch, gather_height, spatial_sharding, sum_over_group
 from .lbfgs import lbfgs_init, lbfgs_step
 
 ADAM_B1, ADAM_B2 = 0.9, 0.999
@@ -72,17 +83,19 @@ def make_nst_fn(
     stats_taps: bool = False,
     mesh: Mesh | None = None,
 ):
-    """Build ``fn(vgg_params, c_img, s_img, generator=None) -> NSTResult``.
-    ``generator`` (a CPU ``torch.Generator``) draws the noise init when
-    ``clone_content=False``; ``history_every=k`` keeps every k-th image.
-    ``stats_taps=True`` takes the fused relu+stats taps for the BN loss; it
-    needs the BN loss and every style layer a relu that is not a content
-    layer, and otherwise the classic path runs, as in the JAX package.
-    With ``mesh``, the images are this rank's block of the batch, and the
-    histories come back summed over its data group."""
+    """Build ``fn(vgg_params, c_img, s_img, generator=None, gather=False)
+    -> NSTResult``.  ``generator`` (a CPU ``torch.Generator``) draws the
+    noise init when ``clone_content=False``; ``history_every=k`` keeps every
+    k-th image.  ``stats_taps=True`` takes the fused relu+stats taps for the
+    BN loss; it needs the BN loss and every style layer a relu that is not a
+    content layer, and otherwise the classic path runs, as in the JAX
+    package.  With ``mesh``, the images are this rank's block of the batch
+    and of H (``spatial_sharding``), the histories come back as the one-rank
+    histories, and ``gather=True`` returns ``x`` and ``x_hist`` whole."""
     if optimizer not in ("lbfgs", "adam"):
         raise ValueError(f"unknown optimizer: {optimizer}")
     use_stats = stats_taps and bn_loss and VGG19.stats_taps_eligible(style_layers, content_layers)
+    n_model = mesh.shape["model"] if mesh is not None else 1
     vgg_apply = functools.partial(
         VGG19.apply,
         content_layers=tuple(content_layers),
@@ -90,12 +103,22 @@ def make_nst_fn(
         compute_dtype=compute_dtype,
         truncate=True,
         stats_taps=use_stats,
+        mesh=mesh if n_model > 1 else None,
     )
-    group = mesh.data_group if mesh is not None else None
-    n_data = mesh.shape["data"] if mesh is not None else 1
+    group = mesh.world_group if mesh is not None else None  # every rank holds a piece of x
+    shares = mesh.world_size if mesh is not None else 1
+    model_group = mesh.model_group if n_model > 1 else None
+
+    def gram(f):
+        """The whole image's Gram matrix: the slabs' add up, each over its
+        own rows' share of the image."""
+        return gram_matrix(f) if n_model == 1 else sum_over_group(gram_matrix(f).float(), model_group) / n_model
+
+    def stats(feats):
+        return [style_stats(f) for f in feats] if n_model == 1 else style_stats_split(feats, model_group, n_model)
 
     @torch.no_grad()
-    def fn(vgg_params, c_img, s_img, generator: torch.Generator | None = None) -> NSTResult:
+    def fn(vgg_params, c_img, s_img, generator: torch.Generator | None = None, gather: bool = False) -> NSTResult:
         params = VGG19.cast(vgg_params, compute_dtype)
         c_img = c_img.float()
         s_img = s_img.float()
@@ -106,19 +129,19 @@ def make_nst_fn(
         if use_stats:
             s_targets = s_feats  # already (mean, std) pairs
         else:
-            s_targets = [style_stats(f) if bn_loss else gram_matrix(f) for f in s_feats]
+            s_targets = stats(s_feats) if bn_loss else [gram(f) for f in s_feats]
 
         def loss_fn(x):
             _, x_c, x_s = vgg_apply(params, x)
             c_loss = content_loss_l2(x_c, c_targets)
-            if n_data > 1:  # this block's share of the mean over the whole batch
-                c_loss = c_loss / n_data
+            if shares > 1:  # this block's share of the mean over the whole batch and image
+                c_loss = c_loss / shares
             if use_stats:
                 s_loss = style_loss_bn_stats(x_s, s_targets)
             elif bn_loss:
-                s_loss = style_loss_bn(x_s, s_targets)
+                s_loss = style_loss_bn_stats(stats(x_s), s_targets)
             else:
-                s_loss = style_loss_gram(x_s, s_targets, gram_fn=gram_matrix)
+                s_loss = style_loss_gram(x_s, s_targets, gram_fn=gram)
             return c_loss * c_loss_weight + s_loss * s_loss_weight, c_loss, s_loss
 
         if clone_content:
@@ -126,9 +149,10 @@ def make_nst_fn(
         else:
             if generator is None:
                 generator = torch.Generator().manual_seed(0)
-            if n_data > 1:  # this rank's block of the whole batch's draw
-                shape = (c_img.shape[0] * n_data, *c_img.shape[1:])
-                x = torch.rand(shape, generator=generator)[batch_sharding(mesh, shape[0])].to(device)
+            if shares > 1:  # this rank's block of the whole batch's draw
+                b, ch, h, w = c_img.shape
+                shape = (b * mesh.batch_shards, ch, h * n_model, w)
+                x = torch.rand(shape, generator=generator)[spatial_sharding(mesh, shape)].to(device)
             else:
                 x = torch.rand(c_img.shape, generator=generator).to(device)
 
@@ -164,9 +188,14 @@ def make_nst_fn(
             if n_snaps and i % history_every == 0 and i // history_every < n_snaps:
                 snaps[i // history_every] = x
             x = x + update
-        if group is not None:
-            c_hist, s_hist = all_reduce(torch.stack([c_hist, s_hist]), group)
-        return NSTResult(x.clamp(0.0, 1.0), c_hist, s_hist, snaps)
+        if group is not None:  # the content shares of every rank; the style losses of one model rank a block
+            s_part = s_hist if mesh.model_index == 0 else torch.zeros_like(s_hist)
+            c_hist, s_hist = all_reduce(torch.stack([c_hist, s_part]), group)
+        x = x.clamp(0.0, 1.0)
+        if gather and mesh is not None:
+            x = gather_batch(mesh, gather_height(mesh, x))
+            snaps = None if snaps is None else gather_batch(mesh, gather_height(mesh, snaps), dim=1)
+        return NSTResult(x, c_hist, s_hist, snaps)
 
     return fn
 
@@ -192,7 +221,8 @@ def nst(
     (``pipelines.py:8-19``), built once per configuration.  Images are NCHW
     in [0,1]; ``generator`` takes the place of the JAX ``noise_key``, and
     ``scan_unroll`` has no counterpart in an eager loop.  With ``mesh``,
-    the images are this rank's block of the batch."""
+    the images are this rank's block of the batch (and of H, with more
+    than one model rank)."""
     fn = _cached_nst_fn(
         epochs=epochs,
         clone_content=clone_content,

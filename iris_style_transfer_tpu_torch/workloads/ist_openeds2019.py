@@ -22,8 +22,12 @@ rank walks the same global batches and runs RITnet, the classifiers, the
 joint NST (its L-BFGS reduced over the data group) and the composite on
 its block; the logits and IoUs are gathered, so the per-batch and epoch
 metrics are the global batch's, and rank 0 alone writes logs, PNGs,
-arrays and ``done.json``.  ``--model_parallel > 1`` (spatial sharding in
-JAX) is not ported.
+arrays and ``done.json``.  ``--model_parallel m`` (JAX's spatial
+sharding) makes the mesh (n/m data, m model): RITnet, the classifiers and
+the composite run on the rank's data block, repeated over its model group;
+the NST runs on the rank's slab of H rows of that block (its L-BFGS
+reduced over every rank), and one gather over the model group restores
+the whole stylized irises.  ``(224 / 8) % m`` must be 0, as in JAX.
 """
 
 from __future__ import annotations
@@ -40,12 +44,22 @@ from ..data import batch_iterator, build_ist_dataset, load_data_openeds2019, syn
 from ..models import Classifier1, Classifier2, RITnet, VGG19, load_pretrained
 from ..ops.image import as_bool_mask, as_label_map, crop_and_resize, gray_to_rgb, to_unit_float
 from ..ops.metrics import classification_metrics, iou_per_class
-from ..parallel.mesh import SPATIAL_ITEM, Mesh, barrier, gather_batch, one_rank, replicated, shard_batch
+from ..parallel.mesh import (
+    Mesh,
+    barrier,
+    gather_batch,
+    gather_height,
+    height_sharding,
+    one_rank,
+    replicated,
+    shard_batch,
+)
 from ..pipelines import composite_batch
 from ..runtime import MetricLogger, StepTimer, restore_params
 from ..runtime.config import (
     WorkloadConfig,
     add_common_args,
+    check_model_parallel,
     main_mesh,
     parse_config,
     resolve_device,
@@ -213,17 +227,19 @@ def iris_style_transfer_openeds2019(
                 save_png(f"{save_dir}batch_{batch_id}_sty.png", batch[5][0].cpu().numpy())
 
             s_rgb = gray_to_rgb(to_unit_float(s_irises)).permute(0, 3, 1, 2)
+            rows = height_sharding(mesh, CROP[0])  # this rank's slab of the irises' H
             with timer:
-                result = nst_fn(vgg_params, irises.permute(0, 3, 1, 2), s_rgb)
+                result = nst_fn(vgg_params, irises.permute(0, 3, 1, 2)[:, :, rows], s_rgb[:, :, rows])
+                stylized = gather_height(mesh, result.x)
                 _sync(device)
             futs.append(metric_pool.submit(
                 _loss_job, metric_prefix, result.c_loss_hist, result.s_loss_hist,
                 c_loss_weight, s_loss_weight,
             ))
 
-            new_frames, p1, p2 = post_fn(vgg_params, c1_params, c2_params, c_imgs, result.x, masks, bboxes)
+            new_frames, p1, p2 = post_fn(vgg_params, c1_params, c2_params, c_imgs, stylized, masks, bboxes)
             seg_parts = post_seg(ritnet_params, new_frames, seg_gt)
-            if mesh.shape["data"] > 1:  # (4, B / n) per rank -> (4, B)
+            if mesh.batch_shards > 1:  # (4, B / n) per rank -> (4, B)
                 seg_parts = [gather_batch(mesh, torch.cat(seg_parts, dim=1).t().contiguous()).t()]
             futs.append(metric_pool.submit(
                 _batch_metric_job, metric_prefix, num_class, "post", yy, ys, valid,
@@ -303,15 +319,13 @@ def main(argv: list[str] | None = None):
     cfg, args = parse_config(parser, defaults, argv)
 
     device = resolve_device(args.device)
-    if cfg.model_parallel > 1:
-        raise SystemExit(f"--model_parallel > 1 shards each image's height over the model group (spatial "
-                         f"sharding), which is not ported yet: {SPATIAL_ITEM}")
+    check_model_parallel(cfg.model_parallel, CROP[0])
     if spawns_ranks(cfg, device):
         return run_on_ranks(main, argv, cfg, device)
     mesh = main_mesh(cfg, device)
     device = mesh.device
-    if cfg.bs % mesh.shape["data"]:
-        raise SystemExit(f"batch size {cfg.bs} not divisible by {mesh.shape['data']} data shards")
+    if cfg.bs % mesh.batch_shards:
+        raise SystemExit(f"batch size {cfg.bs} not divisible by {mesh.batch_shards} data shards")
 
     gen = seed_all(cfg.seed)
     base = os.path.join(cfg.data_dir, "openeds2019")

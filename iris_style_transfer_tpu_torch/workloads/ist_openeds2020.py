@@ -28,7 +28,12 @@ rank walks the same global batches and runs B7, both estimators, the joint
 NST (its L-BFGS reduced over the data group) and the composite on its
 block, in chunks of :data:`SEG_CHUNK` frames; the predictions are
 gathered, and rank 0 alone writes logs, PNGs, arrays and ``done.json``.
-``--model_parallel > 1`` (spatial sharding in JAX) is not ported.
+``--model_parallel m`` (JAX's spatial sharding) makes the mesh (n/m data,
+m model): B7, both estimators and the composite run on the rank's data
+block, repeated over its model group; the NST runs on the rank's slab of
+H rows of that block (its L-BFGS reduced over every rank), and one gather
+over the model group restores the whole stylized irises.  ``(224 / 8) %
+m`` must be 0, as in JAX.
 """
 
 from __future__ import annotations
@@ -45,12 +50,22 @@ from ..data import batch_iterator, load_labels_openeds2020, stream_openeds2020, 
 from ..models import EfficientNet, GazeEstimator1, GazeEstimator2, VGG19, load_pretrained, pretrained_path
 from ..ops.image import crop_and_resize, gray_to_rgb, nonzero_bbox, quantize_u8, to_unit_float
 from ..ops.metrics import angular_distance
-from ..parallel.mesh import SPATIAL_ITEM, Mesh, barrier, gather_batch, one_rank, replicated, shard_batch
+from ..parallel.mesh import (
+    Mesh,
+    barrier,
+    gather_batch,
+    gather_height,
+    height_sharding,
+    one_rank,
+    replicated,
+    shard_batch,
+)
 from ..pipelines import composite_batch, extract_iris_batch
 from ..runtime import MetricLogger, StepTimer, restore_params
 from ..runtime.config import (
     WorkloadConfig,
     add_common_args,
+    check_model_parallel,
     main_mesh,
     parse_config,
     resolve_device,
@@ -59,7 +74,7 @@ from ..runtime.config import (
 )
 from ..transfer.nst import cached_nst_program
 from ..utils import prepare_dir, read_png_gray, save_png, seed as seed_all, sweep_done, write_sweep_marker
-from .ist_openeds2019 import _sync
+from .ist_openeds2019 import CROP, _sync
 
 # frames per B7 + ResNet50 chunk at 400x640.  At 32 one bf16 B7 chunk
 # apply peaks at 5.06 GB and the whole main at 13.16 GB on an NVIDIA H100
@@ -195,16 +210,18 @@ def iris_style_transfer_openeds2020(
                                        gather_batch(mesh, p2), labs_v, valid)]
             agg["labels"].append(labs_v)
 
+            rows = height_sharding(mesh, CROP[0])  # this rank's slab of the irises' H
             with timer:
-                s_batch = s_iris_rgb.expand(irises.shape[0], -1, -1, -1)
-                result = nst_fn(vgg_params, irises.permute(0, 3, 1, 2), s_batch)
+                s_batch = s_iris_rgb[:, rows].expand(irises.shape[0], -1, -1, -1)
+                result = nst_fn(vgg_params, irises.permute(0, 3, 1, 2)[:, :, rows], s_batch)
+                stylized = gather_height(mesh, result.x)
                 _sync(device)
             futs.append(metric_pool.submit(
                 _loss_job, metric_prefix, result.c_loss_hist, result.s_loss_hist,
                 c_loss_weight, s_loss_weight,
             ))
 
-            new_frames, p1, p2 = post_fn(eff_params, g1_params, g2_params, frames_dev, result.x, masks, bboxes)
+            new_frames, p1, p2 = post_fn(eff_params, g1_params, g2_params, frames_dev, stylized, masks, bboxes)
             futs.append(metric_pool.submit(_gaze_metric_job, metric_prefix, "post", gather_batch(mesh, p1),
                                            gather_batch(mesh, p2), labs_v, valid))
 
@@ -286,15 +303,13 @@ def main(argv: list[str] | None = None):
     cfg, args = parse_config(parser, defaults, argv)
 
     device = resolve_device(args.device)
-    if cfg.model_parallel > 1:
-        raise SystemExit(f"--model_parallel > 1 shards each image's height over the model group (spatial "
-                         f"sharding), which is not ported yet: {SPATIAL_ITEM}")
+    check_model_parallel(cfg.model_parallel, CROP[0])
     if spawns_ranks(cfg, device):
         return run_on_ranks(main, argv, cfg, device)
     mesh = main_mesh(cfg, device)
     device = mesh.device
-    if cfg.bs % mesh.shape["data"]:
-        raise SystemExit(f"batch size {cfg.bs} not divisible by {mesh.shape['data']} data shards")
+    if cfg.bs % mesh.batch_shards:
+        raise SystemExit(f"batch size {cfg.bs} not divisible by {mesh.batch_shards} data shards")
     gen = seed_all(cfg.seed)
     vgg_params = load_pretrained("vgg19", args.vgg_weights, lambda: VGG19.init(gen, device), device)
     eff_params = load_pretrained("efficientnet_unet", args.effnet_weights,

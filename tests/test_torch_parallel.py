@@ -106,10 +106,16 @@ def test_one_rank_mesh_and_unported_parts():
         make_mesh(n_devices=2)
     with pytest.raises(ValueError, match="model_parallel"):
         make_mesh(model_parallel=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the parts once unported: a one-rank model group keeps the whole image,
+    # and one rank forms a multislice mesh of one slice
+    assert spatial_sharding(mesh, (3, 3, 20, 5)) == (slice(0, 3), slice(None), slice(0, 20))
+    x = torch.ones(3, 3, 20, 5)
+    assert x[spatial_sharding(mesh, x.shape)].shape == x.shape
+    ms = make_multislice_mesh(1)
+    assert (ms.shape, ms.batch_shards, ms.batch_index, ms.data_group) == ({"slice": 1, "data": 1, "model": 1}, 1, 0,
+                                                                         None)
+    with pytest.raises(ValueError, match="2 slices"):
         make_multislice_mesh(2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        spatial_sharding(mesh)
 
 
 def _rank_partial_spec():

@@ -112,8 +112,13 @@ def test_mains_refuse_a_mesh_they_cannot_form(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="torchrun"):
         iris_classification.main(["--device", "cpu", "--model_parallel", "2"])
     for main in (ist_openeds2019.main, ist_openeds2020.main):
-        with pytest.raises(SystemExit, match="spatial sharding"):
+        # one process cannot form a model group of two; a model group of
+        # three cannot split the relu4_1 tap's 28 rows (JAX's message)
+        with pytest.raises(SystemExit, match="1 rank is not divisible by model_parallel=2"):
             main(["--device", "cpu", "--model_parallel", "2"])
+        with pytest.raises(SystemExit, match=r"model_parallel=3 must divide the relu4_1 tap height 224/8=28 "
+                                             r"\(use 2, 4, 7, 14 or 28\)"):
+            main(["--device", "cpu", "--model_parallel", "3", "--n_devices", "3"])
 
 
 # ---------------------------------------------------------------------------
