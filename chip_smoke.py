@@ -71,7 +71,15 @@ exit:
                / SEG_CHUNK) times; then a timing breakdown of the batch body.
   7. demos   — ``demos.nst_demo --gram --sw 1e6 --size 512`` (exactly 4 x
                (closures + 1) Gram launches) and ``demos.iris_nst_demo``, in-process
-               on the card, writing their PNGs to a temporary directory.
+               on the card, writing their PNGs to a temporary directory; then
+               both demos on the JPEG fixtures (``tests/torch_fixtures``,
+               decoded by ``utils/jpeg.py``): ``nst_demo`` on the 512x512
+               content/style pair at BASELINE.json config 1's settings
+               (``--size 256 --optimizer adam --epochs 200 --gram --sw 1e6``;
+               Gram 4 x (steps + 1), conv1 and relu_pool_fwd steps + 2,
+               relu_pool_bwd steps) and ``iris_nst_demo`` on the two eye
+               JPEGs (conv1 and relu_pool_fwd closures + 2, relu_pool_bwd
+               closures).
   8. train2019 — ``workloads.iris_classification.main`` at full width
                (VGG19 at 224x224, bs 64, bf16) on a twin of 8 users x 40
                frames (4 steps per epoch): two epochs with VGG19 frozen,
@@ -93,9 +101,14 @@ exit:
                from memory in the stream's order; depthwise 102 x (1 + 2 x
                128 / SEG_CHUNK)), ``gaze_estimation`` with estimator 1
                (102 depthwise launches per B7 apply of the landmark
-               extraction) and estimator 2 (bs 128, streamed); the decode
-               rate per filter type on 1 thread and on the loader's 8,
-               beside the estimator-2 trainer's frames/s.
+               extraction) and estimator 2 (bs 128, streamed); every image
+               fixture (``tests/torch_fixtures/manifest.json``: JPEG baseline,
+               progressive, restart intervals, 4:4:4/4:2:2/4:2:0; palette,
+               1-bit and 16-bit PNG) decoded to its SHA-256; the decode
+               rate per PNG filter type and of the 400x640 JPEG fixtures
+               (gray baseline, colour 4:2:0 baseline, colour progressive)
+               on 1 thread and on the loader's 8, beside the estimator-2
+               trainer's frames/s.
  11. replicate — the three replication tools (``tools/``) in-process at
                full width (400x640 twin frames) and cut depth, in a
                temporary directory: every summary key present and finite,
@@ -155,6 +168,11 @@ NST_CLOSURES = 200
 GRAM_NST_CLOSURES = 40
 MAIN_CLOSURES = 20
 DEMO_CLOSURES = 20
+# BASELINE.json config 1 (Gatys NST, tubingen.jpg + starry_night.jpg): the
+# settings of the JPEG-pair demo run
+BASELINE_NST_ARGS = ("--size", "256", "--optimizer", "adam", "--epochs", "200")
+BASELINE_NST_STEPS = 200
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fixtures")
 GRAM_STYLE_WEIGHT = 1e6  # Gatys' style weight; see phase_nst_gram
 SEED = 0
 # the 2019 style taps relu{1..4}_1 at batch 64 and the Gram NST's at
@@ -1510,12 +1528,23 @@ def phase_train_gaze(card: str):
     return out
 
 
-def phase_demos(card: str):
-    """Both demos in-process on the card, into a temporary directory."""
+def _demo_launches(where: str, counters, want: dict) -> dict:
+    got = {k: c[k] for c in counters for k in c if k in want}
+    if got != want:
+        raise AssertionError(f"{where} launched {got}; {want} expected")
+    return got
+
+
+def phase_demos(card: str) -> int:
+    """Both demos in-process on the card, into a temporary directory: on
+    their procedural and synthetic images, then on the JPEG fixtures.
+    Returns the Gram kernel's launches on the JPEG pair."""
     from iris_style_transfer_tpu_torch.demos import iris_nst_demo, nst_demo
     from iris_style_transfer_tpu_torch.ops import blockwise_gram as bg
     from iris_style_transfer_tpu_torch.ops import conv1 as c1
+    from iris_style_transfer_tpu_torch.ops import relu_pool as rp
 
+    counters = (bg.LAUNCHES, c1.LAUNCHES, rp.LAUNCHES)
     with tempfile.TemporaryDirectory() as tmp:
         bg.LAUNCHES["gram_matrix"] = 0
         c1.LAUNCHES["conv1"] = 0
@@ -1542,6 +1571,42 @@ def phase_demos(card: str):
             raise AssertionError(f"iris_nst_demo: missing {missing}, s_loss {s_hist.tolist()}")
         _log("demos", f"iris_nst_demo --epochs {DEMO_CLOSURES} on {card}: 6 PNGs, s_loss "
              f"{s_hist[0].item():.6g} -> {s_hist[-1].item():.6g}")
+
+        # BASELINE.json config 1's settings on the JPEG pair (the demo's
+        # procedural images as a baseline 4:4:4 and a progressive 4:2:0 file
+        # with restart markers)
+        content, style = (os.path.join(FIXTURES, n) for n in ("content_512.jpg", "style_512.jpg"))
+        steps = BASELINE_NST_STEPS
+        _reset(counters)
+        t0 = time.perf_counter()
+        res = nst_demo.main(["--content", content, "--style", style, *BASELINE_NST_ARGS, "--gram", "--sw",
+                             str(GRAM_STYLE_WEIGHT), "--out", out, "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        launches = _demo_launches("nst_demo on the JPEG pair", counters,
+                                  {"gram_matrix": 4 * (steps + 1), "conv1": steps + 2, "relu_pool_fwd": steps + 2,
+                                   "relu_pool_bwd": steps})
+        s_hist = res.s_loss_hist.cpu()
+        x = res.x.float()
+        if not (x.shape == (1, 3, 256, 256) and x.isfinite().all() and s_hist.isfinite().all()
+                and s_hist[-1] < s_hist[0]):
+            raise AssertionError(f"nst_demo on the JPEG pair: x {tuple(x.shape)}, s_loss {s_hist.tolist()}")
+        gram_launches = launches["gram_matrix"]
+        _log("demos", f"nst_demo on content_512.jpg + style_512.jpg {' '.join(BASELINE_NST_ARGS)} --gram --sw "
+             f"{GRAM_STYLE_WEIGHT:g} on {card}: launches {launches}; s_loss {s_hist[0].item():.6g} -> "
+             f"{s_hist[-1].item():.6g}; {wall:.1f} s with the decode")
+
+        _reset(counters)
+        res = iris_nst_demo.main(["--content", os.path.join(FIXTURES, "eye_content.jpg"), "--style",
+                                  os.path.join(FIXTURES, "eye_style.jpg"), "--epochs", str(DEMO_CLOSURES),
+                                  "--outdir", outdir, "--device", "cuda"])
+        launches = _demo_launches("iris_nst_demo on the eye JPEGs", counters[1:],
+                                  {"conv1": DEMO_CLOSURES + 2, "relu_pool_fwd": DEMO_CLOSURES + 2,
+                                   "relu_pool_bwd": DEMO_CLOSURES})
+        s_hist = res.s_loss_hist.cpu()
+        if not (s_hist.isfinite().all() and s_hist[-1] < s_hist[0] and res.x.isfinite().all()):
+            raise AssertionError(f"iris_nst_demo on the eye JPEGs: s_loss {s_hist.tolist()}")
+        _log("demos", f"iris_nst_demo on eye_content.jpg + eye_style.jpg --epochs {DEMO_CLOSURES} on {card}: "
+             f"launches {launches}; s_loss {s_hist[0].item():.6g} -> {s_hist[-1].item():.6g}")
     return gram_launches
 
 # the real-data phase's fake trees at 400x640: OpenEDS2019 users per split
@@ -1586,6 +1651,54 @@ def _decode_rates(tmp: str, frames) -> dict:
     return rates
 
 
+JPEG_RATE_FIXTURES = ("twin_gray_400x640.jpg", "twin_color_420_400x640.jpg", "twin_color_progressive_400x640.jpg")
+
+
+def _check_fixtures() -> list:
+    """Every image fixture decoded by the port to its manifest's SHA-256,
+    in the file's own channels and in gray; returns the manifest."""
+    import hashlib
+
+    from iris_style_transfer_tpu_torch.utils.decode import image_size, read_image, read_image_gray
+
+    with open(os.path.join(FIXTURES, "manifest.json")) as fh:
+        files = json.load(fh)["files"]
+    for e in files:
+        p = os.path.join(FIXTURES, e["file"])
+        own, gray = read_image(p), read_image_gray(p)
+        sums = (hashlib.sha256(own.tobytes()).hexdigest(), hashlib.sha256(gray.tobytes()).hexdigest())
+        if list(own.shape) != e["shape"] or sums != (e["sha256"], e["gray_sha256"]) or \
+                image_size(p) != tuple(e["shape"][:2]):
+            raise AssertionError(f"{e['file']} ({e['form']}) decodes to {own.shape} {sums}, not its manifest entry")
+    _log("real_data", f"{len(files)} image fixtures decoded to their manifest SHA-256 (own channels and gray): "
+         + ", ".join(f"{e['file']} ({e['form']})" for e in files))
+    return files
+
+
+def _jpeg_decode_rates(files: list) -> dict:
+    """decode_gray_batch's frames/s on DECODE_FRAMES reads of each 400x640
+    JPEG fixture, on one thread and on the loader's threads, each timed
+    twice in turns (the faster kept)."""
+    import numpy as np
+    from iris_style_transfer_tpu_torch.data import decode_gray_batch
+
+    forms = {e["file"]: e["form"] for e in files}
+    rates = {}
+    for name in JPEG_RATE_FIXTURES:
+        paths = [os.path.join(FIXTURES, name)] * DECODE_FRAMES
+        decode_gray_batch(paths[:1], FRAME_H, FRAME_W, threads=1, dtype=np.uint8)  # the decoder built and warm
+        for threads in (1, LOADER_THREADS, LOADER_THREADS, 1):  # in turns; the faster of two
+            t0 = time.perf_counter()
+            decode_gray_batch(paths, FRAME_H, FRAME_W, threads=threads, dtype=np.uint8)
+            rate = DECODE_FRAMES / (time.perf_counter() - t0)
+            rates[(forms[name], threads)] = max(rate, rates.get((forms[name], threads), 0.0))
+        kb = os.path.getsize(paths[0]) / 1e3
+        _log("real_data", f"decode {FRAME_H}x{FRAME_W} {forms[name]} ({name}, {kb:.1f} kB): "
+             f"{rates[(forms[name], 1)]:.1f} frames/s on 1 thread, {rates[(forms[name], LOADER_THREADS)]:.1f} on "
+             f"{LOADER_THREADS} threads ({os.cpu_count()} host cores)")
+    return rates
+
+
 def phase_real_data(card: str) -> dict:
     """The four mains from fake OpenEDS2019 and OpenEDS2020 trees on disk
     (``data/fake_openeds.py``, 400x640, every row filter): the 2019 IST
@@ -1625,6 +1738,7 @@ def phase_real_data(card: str) -> dict:
         val_frames = np.round(np.clip(synthetic_eye_batch(n_val, FRAME_H, FRAME_W, seed=SEED + 1, gaze=True)[0], 0, 1)
                               * 255).astype(np.uint8)
         out["decode"] = _decode_rates(tmp, val_frames[..., 0])
+        out["decode"].update(_jpeg_decode_rates(_check_fixtures()))
 
         # the 2019 IST main: the test part of every user's frames
         argv = ["-bs", str(REAL_BS_2019), "--nst_epochs", str(MAIN_CLOSURES)]
@@ -1738,8 +1852,9 @@ def phase_real_data(card: str) -> dict:
     trainer = out["estimator2"]["frames_per_sec"]
     for ft in sorted({ft for ft, _ in out["decode"]}, key=str):
         threaded = out["decode"][(ft, LOADER_THREADS)]
+        kind = ft if isinstance(ft, str) and ft.startswith("JPEG") else f"PNG filter {ft}"
         _log("real_data", f"decode vs the estimator-2 trainer (bs {REAL_BS_2020}, {trainer:.1f} frames/s) on {card} "
-             f"with {os.cpu_count()} host cores: filter {ft}: {threaded:.1f} frames/s on {LOADER_THREADS} threads = "
+             f"with {os.cpu_count()} host cores: {kind}: {threaded:.1f} frames/s on {LOADER_THREADS} threads = "
              f"{threaded / trainer:.2f}x, {out['decode'][(ft, 1)]:.1f} on 1 thread = "
              f"{out['decode'][(ft, 1)] / trainer:.2f}x")
     _log("real_data", f"phase took {time.perf_counter() - t_phase:.1f} s")

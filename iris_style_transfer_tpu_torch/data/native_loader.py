@@ -3,12 +3,14 @@
 Counterpart of ``iris_style_transfer_tpu/data/native_loader.py``, whose
 libpng/libjpeg library (``native/ist_loader.cpp``) the port does not
 assume on its machine.  :func:`decode_gray_batch` decodes same-sized PNGs
-on a thread pool through ``utils/png.py``: Python's ``zlib`` inflates and
-the compiled helper (``data/csrc/png_unfilter.cpp``) undoes the row
-filters and folds colour to gray as PIL's ``convert("L")`` does.  Both
-release the GIL, so the threads decode in parallel.  Palette, 16-bit,
-interlaced and JPEG files raise ``ValueError``; both datasets are 8-bit
-PNG.
+and JPEGs on a thread pool through ``utils/decode.py``, which picks the
+format by magic bytes as ``ist_loader.cpp`` does: for a PNG, Python's
+``zlib`` inflates and ``data/csrc/png_unfilter.cpp`` undoes the row
+filters; a JPEG goes through ``data/csrc/jpeg_decode.cpp``.  Colour folds
+to gray as PIL's ``convert("L")`` does.  The compiled parts release the
+GIL, so the threads decode in parallel.  Every PNG form and baseline and
+progressive JPEG read; a file of another format raises ``ValueError``, as
+do the JPEG forms ``utils/jpeg.py`` lists.
 """
 
 from __future__ import annotations
@@ -17,16 +19,17 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from ..utils import png
-from ..utils.png import read_png_gray
+from ..utils import jpeg, png
+from ..utils.decode import read_image_gray
 
 
 def available() -> bool:
-    """Whether the decode helper (``data/csrc/png_unfilter.cpp``) builds and
-    loads on this machine; :func:`decode_gray_batch` needs it and has no
-    fallback."""
+    """Whether the decode helpers (``data/csrc/png_unfilter.cpp`` and
+    ``jpeg_decode.cpp``) build and load on this machine;
+    :func:`decode_gray_batch` needs them and has no fallback."""
     try:
         png._lib()
+        jpeg._lib()
     except (RuntimeError, OSError):  # no compiler, a failed build, an unloadable library
         return False
     return True
@@ -40,7 +43,7 @@ def decode_gray_batch(
     file of another size raises ``IOError``."""
     out = np.empty((len(paths), height, width), np.uint8)
     with ThreadPoolExecutor(max_workers=max(1, min(threads, len(paths)))) as pool:
-        for f in [pool.submit(read_png_gray, p, out[i]) for i, p in enumerate(paths)]:
+        for f in [pool.submit(read_image_gray, p, out[i]) for i, p in enumerate(paths)]:
             f.result()
     if np.dtype(dtype) == np.uint8:
         return out[..., None]

@@ -52,7 +52,7 @@ from ..ops.image import (
 )
 from ..ops.metrics import iou_per_class
 from ..pipelines.iris import iris_mask_from_seg
-from ..utils.png import png_size
+from ..utils.decode import image_size
 from .native_loader import decode_gray_batch
 
 MAPPING_KEY = "semantic_segmenation_images"  # the dataset's own spelling (reference :308)
@@ -108,7 +108,7 @@ def load_data_openeds2019(
         if not names:
             continue
         paths = [os.path.join(i_folder, p) for p in names]
-        h, w = png_size(paths[0])
+        h, w = image_size(paths[0])
         for name, arr in zip(names, decode_gray_batch(paths, h, w, dtype=np.uint8)):
             seg = np.load(os.path.join(m_folder, name[:-4] + ".npy")) if load_seg else None
             xs, ys, ms = (train_x, train_y, train_m) if img_train[name] else (test_x, test_y, test_m)

@@ -31,7 +31,7 @@ from ..models.efficientnet import EfficientNet
 from ..models.resnet import ResNet50
 from ..ops.ellipse import extract_eye_landmarks
 from ..ops.image import to_unit_float
-from ..utils.png import png_size
+from ..utils.decode import image_size
 from .native_loader import decode_gray_batch
 from .prefetch import background
 
@@ -92,7 +92,7 @@ def load_data_openeds2020(
     frames, (N, 19) landmarks (estimator 1) or (N, 2048) ResNet50 features
     (estimator 2).  ``compute_dtype`` defaults to float32."""
     seq_paths, labels = _sequence_index(data_path, postfix, max_sequences)
-    h, w = png_size(seq_paths[0][0])
+    h, w = image_size(seq_paths[0][0])
     decoded = background((decode_gray_batch(p, h, w, dtype=np.uint8) for p in seq_paths), size=2)
     if not extract_feature:
         return np.concatenate(list(decoded)), np.concatenate(labels)
@@ -145,7 +145,7 @@ def stream_openeds2020(
     order = list(range(len(seq_paths)))
     if rng is not None:
         rng.shuffle(order)
-    h, w = png_size(seq_paths[0][0])
+    h, w = image_size(seq_paths[0][0])
     buf_imgs: list[np.ndarray] = []
     buf_labs: list[np.ndarray] = []
     hold = max(buffer_batches, 1) * batch_size

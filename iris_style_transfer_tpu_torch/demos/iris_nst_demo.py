@@ -9,7 +9,8 @@ Counterpart of the JAX package's ``demo/iris_nst_demo.py`` (the reference's
 
 Two eye images -> RITnet mask and crop of both irises -> NST with
 ``c_loss_weight=0, s_loss_weight=1`` -> the stylized iris composited back
-into the content eye.  Writes before/after PNGs with ``utils/png.py``.
+into the content eye.  Reads PNG or JPEG eyes (``utils/decode.py``) and
+writes before/after PNGs with ``utils/png.py``.
 
 Without image arguments it runs on synthetic eyes.  ``--reference_dir``
 names a folder holding the reference's real eye crops
@@ -31,23 +32,20 @@ from ..models import RITnet, VGG19, load_pretrained
 from ..pipelines import composite_batch, mask_and_crop_iris
 from ..runtime.config import resolve_device
 from ..transfer.nst import NSTResult, nst
-from ..utils.png import read_png, write_png
+from ..utils.decode import read_image_gray
+from ..utils.png import write_png
 
 CROP = (224, 224)  # the NST's iris crop
 CONTENT_NAME, STYLE_NAME = "000000339816.png", "000000240703.png"
 
 
 def load_eye(path: str, seed: int) -> np.ndarray:
-    """(H, W, 1) float32 eye in [0,1]: a PNG as luma, reflect-padded to
-    extents divisible by 16 (RITnet's four pools), or a synthetic eye."""
+    """(H, W, 1) float32 eye in [0,1]: a PNG or JPEG as gray (PIL's
+    ``convert("L")``, ``utils/decode.py``), reflect-padded to extents
+    divisible by 16 (RITnet's four pools), or a synthetic eye."""
     if not path:
         return synthetic_eye_batch(1, height=400, width=640, seed=seed)[0][0]
-    a = read_png(path).astype(np.uint32)
-    if a.shape[-1] >= 3:  # ITU-R 601-2 luma, in the integer form imaging libraries use
-        a = (a[..., 0] * 19595 + a[..., 1] * 38470 + a[..., 2] * 7471 + 0x8000) >> 16
-    else:
-        a = a[..., 0]
-    arr = a.astype(np.float32)[..., None] / 255.0
+    arr = read_image_gray(path).astype(np.float32)[..., None] / 255.0
     ph, pw = (-arr.shape[0]) % 16, (-arr.shape[1]) % 16
     if ph or pw:
         print(f"padding {arr.shape[:2]} by ({ph}, {pw}) to /16-divisible")

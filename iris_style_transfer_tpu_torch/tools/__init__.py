@@ -12,6 +12,9 @@ iris_style_transfer_tpu_torch.tools.<name>``:
   * ``port_weights``             — a PyTorch checkpoint (torchvision, smp,
                                    the reference's heads) -> the npz both
                                    packages read.
+  * ``time_connected``, ``time_decode`` — timings of the labelling kernel
+                                   (GPU) and of the host JPEG decode, run
+                                   as scripts (their docstrings).
 
 Counterparts of the repository's ``tools/replicate_*.py`` and
 ``tools/port_weights.py``; the replication tools keep their

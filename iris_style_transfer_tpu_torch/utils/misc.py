@@ -4,7 +4,8 @@ Counterpart of ``iris_style_transfer_tpu/utils/misc.py``.  :func:`seed`
 seeds the host RNGs (dataset splits and donor sampling) and returns a CPU
 ``torch.Generator`` for seeded parameter init; ``prepare_dir``,
 ``sweep_done`` and ``write_sweep_marker`` keep sweeps resumable;
-``save_png`` writes the sample images the workloads keep (``utils/png.py``).
+``save_png`` writes the sample images the workloads keep (``utils/png.py``);
+``plot_help`` is the notebooks' figure helper.
 """
 
 from __future__ import annotations
@@ -70,3 +71,30 @@ def write_sweep_marker(marker_path: str, config: dict, metrics: dict) -> None:
     """Write done.json with the combo's metrics and its configuration."""
     with open(marker_path, "w") as fh:
         json.dump({"config": config, "metrics": {k: float(v) for k, v in metrics.items()}}, fh)
+
+
+def plot_help(images, titles, figsize=None, grayscale: bool = True, axis_off: bool = False):
+    """Notebook plotting helper (reference ``utils.py:112-161``), with the
+    JAX package's signature; takes numpy arrays or tensors (moved to the
+    CPU) of (H, W), (H, W, 1) or (H, W, 3), channel-last."""
+    import matplotlib.pyplot as plt  # lazy: not needed on workers
+
+    assert len(titles) == len(images)
+    cmap = "gray" if grayscale else None
+    if figsize is None:
+        figsize = (len(titles) * 3 + 1, 3)
+    f, axarr = plt.subplots(nrows=1, ncols=len(titles), figsize=figsize)
+    if len(titles) == 1:
+        axarr = [axarr]
+    for a, t, img in zip(axarr, titles, images):
+        a.set_title(t)
+        if isinstance(img, torch.Tensor):  # numpy has no bfloat16
+            img = img.detach().cpu()
+            img = img.float() if img.dtype == torch.bfloat16 else img
+        arr = np.asarray(img)
+        if arr.ndim == 3 and arr.shape[-1] == 1:
+            arr = arr[..., 0]
+        a.imshow(arr, cmap=cmap if arr.ndim == 2 else None)
+        if axis_off:
+            a.axis("off")
+    plt.show()

@@ -6,15 +6,21 @@ it, so no imaging library is needed.  ``write_png`` writes 8-bit gray,
 gray+alpha, RGB or RGBA with one of the five row filters on every row, or
 with the cheapest filter per row ("adaptive", libpng's heuristic: the least
 sum of |filtered byte| read as signed), so tests can write the files real
-encoders write.  ``read_png`` reads 8-bit non-interlaced gray, gray+alpha,
-RGB and RGBA; ``read_png_gray`` folds them to gray as PIL's
-``convert("L")`` does.  Python's ``zlib`` inflates; the byte-serial row
-unfilter and the gray fold run in ``data/csrc/png_unfilter.cpp``, built at
-first use with the system's C++ compiler (``ops/cuda_build.py``).  A
-failed build raises.  :func:`_unfilter` is the plain Python version of the
-unfilter, which the tests hold the compiled one to.  Palette, 16-bit,
-interlaced and JPEG files raise ``ValueError``; a truncated or corrupt
-stream raises ``IOError``.
+encoders write.  ``read_png`` reads every PNG form, as libpng does under
+the JAX package's native loader: gray at 1, 2, 4, 8 and 16 bits, palette
+at 1, 2, 4 and 8 bits (colours through PLTE, tRNS dropped), gray+alpha,
+RGB and RGBA at 8 and 16 bits, non-interlaced or Adam7.  Samples come out
+8-bit: 1/2/4-bit gray is scaled as ``png_set_expand_gray_1_2_4_to_8``
+does, 16-bit samples keep their high byte as ``png_set_strip_16`` does
+(PIL's ``convert("L")`` of a 16-bit gray file clips at 255 instead;
+ROADMAP, "Found in the reference").  ``read_png_gray`` folds colour to
+gray as PIL's ``convert("L")`` does.  Python's ``zlib`` inflates; the
+byte-serial row unfilter (each Adam7 pass on its own) and the gray fold
+run in ``data/csrc/png_unfilter.cpp``, built at first use with the
+system's C++ compiler (``ops/cuda_build.py``).  A failed build raises.
+:func:`_unfilter` is the plain Python version of the unfilter, which the
+tests hold the compiled one to.  A file that is not a PNG raises
+``ValueError``; a truncated or corrupt stream raises ``IOError``.
 """
 
 from __future__ import annotations
@@ -27,7 +33,10 @@ import zlib
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4}  # PNG colour type -> samples per pixel
+_CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4, 3: 1}  # PNG colour type -> samples per pixel
+_DEPTHS = {0: (1, 2, 4, 8, 16), 3: (1, 2, 4, 8), 2: (8, 16), 4: (8, 16), 6: (8, 16)}
+# Adam7: (first column, first row, column step, row step) of each pass
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 _COLOR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}
 FILTER_TYPES = (0, 1, 2, 3, 4, "adaptive")
 _SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "csrc",
@@ -160,14 +169,14 @@ def unfilter_rows(raw: np.ndarray, bpp: int, out: np.ndarray | None = None) -> n
 def _read_header(data: bytes, path: str) -> tuple[int, int, int, int, int]:
     """(width, height, bit depth, colour type, interlace) from the IHDR
     chunk, which the spec puts first; raises ValueError for a file that is
-    not a PNG."""
-    if data[:2] == b"\xff\xd8":
-        raise ValueError(f"{path} is a JPEG: the port decodes PNG only (no libjpeg is assumed; ROADMAP)")
+    not a PNG and IOError for a header no decoder reads."""
     if data[:8] != _SIGNATURE:
         raise ValueError(f"{path} is not a PNG file")
     if data[12:16] != b"IHDR":
         raise IOError(f"{path}: the PNG does not start with an IHDR chunk")
     w, h, depth, color, _, _, interlace = struct.unpack(">IIBBBBB", data[16:29])
+    if depth not in _DEPTHS.get(color, ()) or interlace > 1:
+        raise IOError(f"{path}: bad IHDR (bit depth {depth}, colour type {color}, interlace {interlace})")
     return w, h, depth, color, interlace
 
 
@@ -178,55 +187,113 @@ def png_size(path: str) -> tuple[int, int]:
     return h, w
 
 
-def _decode(path: str) -> tuple[np.ndarray, int, int, int]:
-    """(inflated rows (H, 1 + W·channels), H, W, channels) of an 8-bit
-    non-interlaced gray/gray+alpha/RGB/RGBA PNG."""
-    with open(path, "rb") as fh:
-        data = fh.read()
-    w, h, depth, color, interlace = _read_header(data, path)
-    if depth != 8 or color not in _CHANNELS or interlace:
-        kind = f"colour type {color}" + (" (palette)" if color == 3 else "")
-        raise ValueError(f"{path}: only 8-bit non-interlaced gray, gray+alpha, RGB and RGBA PNGs are read "
-                         f"(this one: bit depth {depth}, {kind}, interlace {interlace})")
-    pos, idat = 8, []
-    while pos + 8 <= len(data):
-        (length,) = struct.unpack(">I", data[pos : pos + 4])
-        tag = data[pos + 4 : pos + 8]
-        if tag == b"IDAT":
-            idat.append(data[pos + 8 : pos + 8 + length])
-        elif tag == b"IEND":
-            break
-        pos += 12 + length
-    ch = _CHANNELS[color]
-    try:
-        raw = zlib.decompress(b"".join(idat))
-    except zlib.error as err:
-        raise IOError(f"{path}: corrupt image data ({err})") from None
-    if len(raw) != h * (w * ch + 1):
-        raise IOError(f"{path}: {len(raw)} bytes of image data, {h * (w * ch + 1)} expected")
-    return np.frombuffer(raw, np.uint8).reshape(h, w * ch + 1), h, w, ch
+def _stride(w: int, ch: int, depth: int) -> int:
+    return (w * ch * depth + 7) // 8
+
+
+class _Png:
+    """A parsed PNG: its header, inflated image data and palette."""
+
+    def __init__(self, path: str):
+        with open(path, "rb") as fh:
+            data = fh.read()
+        self.w, self.h, self.depth, self.color, self.interlace = _read_header(data, path)
+        self.ch = _CHANNELS[self.color]
+        pos, idat, self.plte = 8, [], None
+        while pos + 8 <= len(data):
+            (length,) = struct.unpack(">I", data[pos : pos + 4])
+            tag = data[pos + 4 : pos + 8]
+            if tag == b"IDAT":
+                idat.append(data[pos + 8 : pos + 8 + length])
+            elif tag == b"PLTE":
+                self.plte = np.frombuffer(data[pos + 8 : pos + 8 + length - length % 3], np.uint8).reshape(-1, 3)
+            elif tag == b"IEND":
+                break
+            pos += 12 + length
+        if self.color == 3 and self.plte is None:
+            raise IOError(f"{path}: a palette PNG without a PLTE chunk")
+        try:
+            self.raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+        except zlib.error as err:
+            raise IOError(f"{path}: corrupt image data ({err})") from None
+        want = sum(ph * (1 + _stride(pw, self.ch, self.depth)) for _, _, _, _, ph, pw in self.passes())
+        if len(self.raw) != want:
+            raise IOError(f"{path}: {len(self.raw)} bytes of image data, {want} expected")
+
+    def passes(self) -> list[tuple[int, int, int, int, int, int]]:
+        """(first row, first column, row step, column step, rows, columns)
+        of each non-empty pass; one pass for a non-interlaced file."""
+        out = []
+        for x0, y0, dx, dy in _ADAM7 if self.interlace else ((0, 0, 1, 1),):
+            ph, pw = -(-(self.h - y0) // dy), -(-(self.w - x0) // dx)
+            if ph > 0 and pw > 0:
+                out.append((y0, x0, dy, dx, ph, pw))
+        return out
+
+    @property
+    def plain8(self) -> bool:
+        """8-bit, non-interlaced, no palette: the unfiltered rows are the pixels."""
+        return self.depth == 8 and not self.interlace and self.color != 3
+
+    def pixels(self) -> np.ndarray:
+        """(H, W, C) uint8: 8-bit samples, palettes expanded to RGB (C 3),
+        every pass in its place."""
+        if self.plain8:
+            return unfilter_rows(self.raw.reshape(self.h, 1 + self.w * self.ch), self.ch).reshape(
+                self.h, self.w, self.ch)
+        out_ch = 3 if self.color == 3 else self.ch
+        img = np.empty((self.h, self.w, out_ch), np.uint8)
+        bpp = max(1, self.ch * self.depth // 8)
+        off = 0
+        for y0, x0, dy, dx, ph, pw in self.passes():
+            stride = _stride(pw, self.ch, self.depth)
+            rows = unfilter_rows(self.raw[off : off + ph * (1 + stride)].reshape(ph, 1 + stride), bpp)
+            off += ph * (1 + stride)
+            img[y0::dy, x0::dx] = self._samples(rows, pw)
+        return img
+
+    def _samples(self, rows: np.ndarray, pw: int) -> np.ndarray:
+        """A pass's unfiltered rows -> (rows, pw, C) 8-bit samples."""
+        n = len(rows)
+        if self.depth == 16:  # png_set_strip_16: the high byte
+            s = rows[:, 0::2]
+        elif self.depth < 8:
+            bits = np.unpackbits(rows, axis=1)[:, : pw * self.depth].reshape(n, pw, self.depth)
+            s = (bits.astype(np.uint8) << np.arange(self.depth - 1, -1, -1, dtype=np.uint8)).sum(axis=2, dtype=np.uint8)
+            if self.color == 0:  # png_set_expand_gray_1_2_4_to_8
+                s = s * np.uint8(255 // (2**self.depth - 1))
+        else:
+            s = rows
+        s = s.reshape(n, pw, self.ch)
+        if self.color == 3:  # PLTE colours; an index past the palette reads black
+            pal, plte = np.zeros((256, 3), np.uint8), self.plte[:256]
+            pal[: len(plte)] = plte
+            s = pal[s[..., 0]]
+        return s
 
 
 def read_png(path: str) -> np.ndarray:
-    """Read an 8-bit non-interlaced PNG as uint8 (H, W, channels)."""
-    raw, h, w, ch = _decode(path)
-    return unfilter_rows(raw, ch).reshape(h, w, ch)
+    """Read a PNG as uint8 (H, W, C): C the file's samples per pixel (1
+    gray, 2 gray+alpha, 3 RGB or palette, 4 RGBA), 8-bit."""
+    return _Png(path).pixels()
 
 
 def read_png_gray(path: str, out: np.ndarray | None = None) -> np.ndarray:
-    """Read an 8-bit PNG as (H, W) uint8 gray, as PIL's ``convert("L")``
-    gives it (alpha dropped; colour by ITU-R 601-2 luma, fixed point);
-    ``out`` may be a C-contiguous (H, W) uint8 buffer of the file's size
-    to write into, else a size mismatch raises IOError."""
-    raw, h, w, ch = _decode(path)
+    """Read a PNG as (H, W) uint8 gray, as PIL's ``convert("L")`` gives it
+    (alpha dropped; colour by ITU-R 601-2 luma, fixed point; 16-bit
+    samples by their high byte); ``out`` may be a C-contiguous (H, W)
+    uint8 buffer of the file's size to write into, else a size mismatch
+    raises IOError."""
+    f = _Png(path)
+    h, w = f.h, f.w
     if out is None:
         out = np.empty((h, w), np.uint8)
     if out.shape != (h, w):
         raise IOError(f"{path}: size {(h, w)} != {out.shape}")
-    if ch == 1:
-        return unfilter_rows(raw, 1, out)
-    pix = unfilter_rows(raw, ch)
     if not out.flags.c_contiguous or out.dtype != np.uint8:
         raise ValueError(f"read_png_gray: out must be C-contiguous uint8, got {out.dtype}")
-    _lib().png_to_gray(_ptr(pix), _ptr(out), h * w, ch)
+    if f.plain8 and f.ch == 1:
+        return unfilter_rows(f.raw.reshape(h, 1 + w), 1, out)
+    pix = np.ascontiguousarray(f.pixels())
+    _lib().png_to_gray(_ptr(pix), _ptr(out), h * w, pix.shape[-1])
     return out

@@ -73,7 +73,7 @@ from ..runtime.config import (
     spawns_ranks,
 )
 from ..transfer.nst import cached_nst_program
-from ..utils import prepare_dir, read_png_gray, save_png, seed as seed_all, sweep_done, write_sweep_marker
+from ..utils import prepare_dir, read_image_gray, save_png, seed as seed_all, sweep_done, write_sweep_marker
 from .ist_openeds2019 import CROP, _sync
 
 # frames per B7 + ResNet50 chunk at 400x640.  At 32 one bf16 B7 chunk
@@ -329,7 +329,7 @@ def main(argv: list[str] | None = None):
     base = os.path.join(cfg.data_dir, "openeds2020", "openEDS2020-GazePrediction")
     use_real = os.path.isdir(base)
     if use_real:  # the reference's hand-picked style frame (:237-249)
-        s_img = read_png_gray(os.path.join(base, "test", "sequences", "2577", "023.png"))
+        s_img = read_image_gray(os.path.join(base, "test", "sequences", "2577", "023.png"))
         s_img = s_img.astype(np.float32)[..., None] / 255.0
     else:
         print(f"[data] {base} not found -> synthetic dataset")

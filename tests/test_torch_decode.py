@@ -1,6 +1,14 @@
 """The port's PNG codec and threaded frame decoder against the JAX
 package's ``decode_gray_batch`` and PIL, on the CPU.
 
+Every PNG form is read (palette at 1/2/4/8 bits with and without tRNS,
+gray at 1/2/4/8/16 bits, gray+alpha, RGB and RGBA at 8 and 16 bits, each
+non-interlaced and Adam7), written here by a small writer, since PIL
+cannot write Adam7 or 2-bit gray; each equals the JAX function's libpng
+path (for colour, but where the two lumas round apart) and PIL, apart
+from 16-bit gray, where PIL's ``convert("L")`` clips at 255 and the port
+keeps libpng's high byte.
+
 Every comparison is exact: decoding is integer work.  The compiled row
 unfilter (``data/csrc/png_unfilter.cpp``) is held byte for byte to the
 plain Python ``_unfilter``; ``decode_gray_batch`` to the JAX function for
@@ -158,17 +166,167 @@ def test_size_mismatch_raises_ioerror_in_both(tmp_path, monkeypatch):
             jnl.decode_gray_batch(paths, H + 1, W)
 
 
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+_SAMPLES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples per pixel
+
+
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+
+
+def _pack(samples: np.ndarray, depth: int) -> np.ndarray:
+    """(rows, n) integer samples -> (rows, stride) bytes: big-endian 16-bit,
+    or 1/2/4-bit samples packed from the most significant bit."""
+    n_rows, n = samples.shape
+    if depth == 16:
+        return samples.astype(">u2").view(np.uint8).reshape(n_rows, 2 * n)
+    if depth == 8:
+        return samples.astype(np.uint8)
+    bits = ((samples[..., None] >> np.arange(depth - 1, -1, -1)) & 1).astype(np.uint8)
+    return np.packbits(bits.reshape(n_rows, n * depth), axis=1)
+
+
+def _write_png_form(path: str, samples: np.ndarray, depth: int, color: int, interlace: bool = False,
+                    plte=None, trns: bytes | None = None) -> None:
+    """A PNG of (H, W, samples) integers at any bit depth and colour type,
+    non-interlaced or Adam7; row r of pass k takes filter (r + k) % 5."""
+    h, w, ch = samples.shape
+    bpp = max(1, ch * depth // 8)
+    raw = []
+    for k, (x0, y0, dx, dy) in enumerate(_ADAM7 if interlace else ((0, 0, 1, 1),)):
+        sub = samples[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        rows = _pack(sub.reshape(sub.shape[0], -1), depth)
+        for r, row in enumerate(rows):
+            ft = (r + k) % 5
+            x = row.astype(np.int32)
+            up = rows[r - 1].astype(np.int32) if r else np.zeros_like(x)
+            left = np.concatenate([np.zeros(bpp, np.int32), x[:-bpp]])
+            upleft = np.concatenate([np.zeros(bpp, np.int32), up[:-bpp]])
+            pred = [np.zeros_like(x), left, up, (left + up) >> 1,
+                    png._paeth_np(left, up, upleft)][ft]
+            raw.append(bytes([ft]) + ((x - pred) & 0xFF).astype(np.uint8).tobytes())
+    out = _SIGNATURE + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, int(interlace)))
+    if plte is not None:
+        out += _png_chunk(b"PLTE", np.asarray(plte, np.uint8).tobytes())
+    if trns is not None:
+        out += _png_chunk(b"tRNS", trns)
+    open(path, "wb").write(out + _png_chunk(b"IDAT", zlib.compress(b"".join(raw))) + _png_chunk(b"IEND", b""))
+
+
+_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# (colour type, bit depth, tRNS or None)
+PNG_FORMS = ([(3, d, None) for d in (1, 2, 4, 8)] + [(3, d, b"\x00\x80\x20") for d in (1, 2, 4, 8)]
+             + [(0, d, None) for d in (1, 2, 4, 8, 16)] + [(0, 8, b"\x00\x05")]
+             + [(c, d, None) for c in (2, 4, 6) for d in (8, 16)] + [(2, 8, b"\x00\x01\x00\x02\x00\x03")])
+
+
+def _form_file(tmp_path, color: int, depth: int, trns, interlace: bool, seed: int = 0, hw=(H, W)) -> str:
+    rng = np.random.default_rng(seed + depth + 10 * color)
+    top = min(1 << depth, 7) if color == 3 else 1 << depth  # palette: 7 colours
+    samples = rng.integers(0, top, (*hw, _SAMPLES[color]))
+    samples[: hw[0] // 2] = np.arange(hw[1])[None, :, None] * 3 % top  # ramps, for the predictive filters
+    plte = rng.integers(0, 256, (7, 3)) if color == 3 else None
+    p = str(tmp_path / f"c{color}_d{depth}_t{trns is not None:d}_i{interlace:d}_{seed}.png")
+    _write_png_form(p, samples, depth, color, interlace, plte, trns)
+    return p
+
+
+def _pil_gray(path: str) -> np.ndarray:
+    with Image.open(path) as im:
+        return np.asarray(im.convert("L"))
+
+
+@pytest.mark.parametrize("interlace", [False, True], ids=["non-interlaced", "adam7"])
+@pytest.mark.parametrize("color,depth,trns", PNG_FORMS,
+                         ids=[f"type{c}-{d}bit{'-trns' if t else ''}" for c, d, t in PNG_FORMS])
+def test_png_forms_read_as_jax_and_pil(tmp_path, monkeypatch, color, depth, trns, interlace):
+    """read_png_gray and decode_gray_batch against the JAX function's libpng
+    path (png_set_palette_to_rgb, expand_gray_1_2_4_to_8, strip_16,
+    strip_alpha, interlace handling) and PIL; read_png's colours against
+    PIL's convert("RGB")."""
+    paths = [_form_file(tmp_path, color, depth, trns, interlace, seed) for seed in range(3)]
+    got = tnl.decode_gray_batch(paths, H, W, threads=2, dtype=np.uint8)[..., 0]
+    for i, p in enumerate(paths):
+        np.testing.assert_array_equal(png.read_png_gray(p), got[i])
+        with Image.open(p) as im:
+            pil_rgb = np.asarray(im.convert("RGB"))
+            pil_mode = im.mode
+        own = png.read_png(p)
+        assert own.shape[-1] == (3 if color == 3 else _SAMPLES[color])
+        rgb = own[..., :3] if own.shape[-1] >= 3 else np.repeat(own[..., :1], 3, axis=-1)
+        if pil_mode == "I;16":  # PIL clips; libpng and the port keep the high byte
+            assert depth == 16 and color == 0
+            raw = _png_16bit_samples(p)
+            np.testing.assert_array_equal(got[i], raw >> 8)
+            np.testing.assert_array_equal(_pil_gray(p), np.minimum(raw, 255))
+        else:
+            np.testing.assert_array_equal(rgb, pil_rgb)
+            np.testing.assert_array_equal(got[i], _pil_gray(p))
+    if color != 0 or depth != 16:
+        np.testing.assert_array_equal(got, _jax_pil(paths, H, W, np.uint8, monkeypatch)[..., 0])
+    if jnl.available():
+        native = jnl.decode_gray_batch(paths, H, W, threads=2, dtype=np.uint8)[..., 0]
+        differ = native != got
+        if color in (0, 4):
+            assert not differ.any()
+        else:  # colour: the JAX library's float luma parts from PIL's where the two round apart
+            rgb = np.stack([png.read_png(p)[..., :3] for p in paths]).astype(np.int64)
+            np.testing.assert_array_equal(differ, _luma_disagree_rgb(rgb))
+
+
+def _png_16bit_samples(path: str) -> np.ndarray:
+    """The 16-bit gray samples as written, by PIL's own I;16 read."""
+    with Image.open(path) as im:
+        return np.asarray(im).astype(np.int64)
+
+
+def _luma_disagree_rgb(rgb: np.ndarray) -> np.ndarray:
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    fixed = (r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16
+    return fixed != (0.299 * r + 0.587 * g + 0.114 * b + 0.5).astype(np.int64)
+
+
+def test_pil_clips_16bit_gray_and_the_port_keeps_the_high_byte(tmp_path, monkeypatch):
+    """PIL opens a 16-bit gray PNG as I;16, and convert("L") clips it at 255:
+    256, 1000 and 65535 all come out 255, so every real 16-bit frame would
+    read white.  The port keeps the high byte, as libpng's strip_16 and the
+    JAX function's libpng path do."""
+    values = np.array([[0, 255, 256, 1000], [4095, 32768, 65280, 65535]], np.uint16)
+    p = str(tmp_path / "g16.png")
+    Image.fromarray(values).save(p)
+    with Image.open(p) as im:
+        assert im.mode == "I;16"
+        np.testing.assert_array_equal(np.asarray(im.convert("L")), [[0, 255, 255, 255], [255, 255, 255, 255]])
+    want = (values >> 8).astype(np.uint8)  # [[0, 0, 1, 3], [15, 128, 255, 255]]
+    np.testing.assert_array_equal(png.read_png_gray(p), want)
+    np.testing.assert_array_equal(tnl.decode_gray_batch([p], 2, 4, dtype=np.uint8)[0, ..., 0], want)
+    np.testing.assert_array_equal(_jax_pil([p], 2, 4, np.uint8, monkeypatch)[0, ..., 0], 255 * (values > 0))
+    if jnl.available():
+        np.testing.assert_array_equal(jnl.decode_gray_batch([p], 2, 4, dtype=np.uint8)[0, ..., 0], want)
+
+
 def _interlaced(path: str) -> None:
-    png.write_png(path, _image("L", 0))
-    data = bytearray(open(path, "rb").read())
-    data[28] = 1  # IHDR's interlace byte
-    data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])) & 0xFFFFFFFF)
-    open(path, "wb").write(bytes(data))
+    """An 8-bit gray Adam7 PNG of _image("L", 0)."""
+    _write_png_form(path, _image("L", 0).astype(np.int64), 8, 0, interlace=True)
 
 
-@pytest.mark.parametrize("kind,match", [("palette", "palette"), ("16-bit", "bit depth 16"),
-                                        ("interlaced", "interlace 1"), ("jpeg", "JPEG")])
-def test_unsupported_files_raise(tmp_path, kind, match):
+@pytest.mark.parametrize("kind,match", [
+    pytest.param("palette", None, id="palette-palette"),
+    pytest.param("16-bit", None, id="16-bit-bit depth 16"),
+    pytest.param("interlaced", None, id="interlaced-interlace 1"),
+    pytest.param("jpeg", None, id="jpeg-JPEG"),
+    pytest.param("gif", "neither a PNG nor a JPEG", id="gif"),
+    pytest.param("cmyk", "CMYK", id="cmyk-jpeg"),
+    pytest.param("arithmetic", "arithmetic", id="arithmetic-jpeg"),
+    pytest.param("bad-ihdr", "bad IHDR", id="bad-ihdr"),
+])
+def test_unsupported_files_raise(tmp_path, monkeypatch, kind, match):
+    """The forms the JAX package reads (palette, 16-bit, Adam7, JPEG) read
+    as its PIL path gives them (libpng's high byte for 16-bit gray); what no
+    JAX path reads raises: another format and the JPEG forms the decoder
+    refuses as ValueError, a PNG header no decoder reads as IOError."""
     p = str(tmp_path / "f.png")
     if kind == "palette":
         Image.fromarray(_image("RGB", 0)).convert("P").save(p)
@@ -176,10 +334,31 @@ def test_unsupported_files_raise(tmp_path, kind, match):
         Image.fromarray((_image("L", 0)[..., 0].astype(np.uint16) * 257)).save(p)
     elif kind == "interlaced":
         _interlaced(p)
-    else:
+    elif kind in ("jpeg", "arithmetic"):
         Image.fromarray(_image("L", 0)[..., 0]).save(p, format="JPEG")
-    with pytest.raises(ValueError, match=match):
-        tnl.decode_gray_batch([p], H, W)
+        if kind == "arithmetic":  # SOF0 -> SOF9
+            data = open(p, "rb").read()
+            open(p, "wb").write(data.replace(b"\xff\xc0", b"\xff\xc9", 1))
+    elif kind == "cmyk":
+        Image.fromarray(_image("RGB", 0)).convert("CMYK").save(p, format="JPEG")
+    elif kind == "gif":
+        Image.fromarray(_image("RGB", 0)).save(p, format="GIF")
+    else:
+        png.write_png(p, _image("L", 0))
+        data = bytearray(open(p, "rb").read())
+        data[24] = 3  # IHDR's bit depth: 3 bits is no PNG form
+        open(p, "wb").write(bytes(data))
+    if match is not None:
+        with pytest.raises(IOError if kind == "bad-ihdr" else ValueError, match=match):
+            tnl.decode_gray_batch([p], H, W)
+        return
+    got = tnl.decode_gray_batch([p], H, W, dtype=np.uint8)
+    if kind == "16-bit":
+        np.testing.assert_array_equal(got[0, ..., 0], _image("L", 0)[..., 0])  # (v * 257) >> 8 == v
+    else:
+        np.testing.assert_array_equal(got, _jax_pil([p], H, W, np.uint8, monkeypatch))
+    if jnl.available() and kind != "palette":
+        np.testing.assert_array_equal(got, jnl.decode_gray_batch([p], H, W, dtype=np.uint8))
 
 
 def test_corrupt_stream_raises_ioerror(tmp_path):

@@ -210,6 +210,9 @@ def test_port_imports_no_jax():
         "from iris_style_transfer_tpu_torch.data import fake_openeds, native_loader, openeds2020\n"
         "from iris_style_transfer_tpu_torch.tools import replicate_rotation, replicate_synthetic\n"
         "from iris_style_transfer_tpu_torch.tools import port_weights, replicate_synthetic_gaze, time_connected\n"
+        "from iris_style_transfer_tpu_torch import experiments\n"
+        "from iris_style_transfer_tpu_torch.tools import time_decode\n"
+        "from iris_style_transfer_tpu_torch.utils import decode, image_size, jpeg, plot_help, read_image\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'iris_style_transfer_tpu.'))]\n"
         "assert not bad and 'iris_style_transfer_tpu' not in sys.modules, bad\n"
         "assert not [m for m in sys.modules if m == 'tools' or m.startswith('tools.')]\n"
