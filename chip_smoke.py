@@ -34,7 +34,19 @@ exit:
                (+backward, plain and with stats taps; bf16 conv1_1 on the
                tensor-core kernel), a Gram-loss closure (the Gram's
                tensor-core kernel; an f32 Gram its CUDA-core one) and a B7
-               U-Net apply launch them.
+               U-Net apply launch them.  The depthwise backward's three
+               kernels (tile, dx and reduce passes) against the plain
+               backward ``dw_conv_bn_silu_bwd`` at every B7 shape of a
+               training step (bs 2) and the forward's other paths, in
+               both dtypes with w in f32, and with an NCHW cotangent:
+               dx within one bf16 ulp of the larger magnitude or 1e-5 of
+               max|dx| and >= 99.9% equal (f32: 1e-5 of max|dx|); dw, da
+               and db within 1e-4 of each one's largest magnitude (f32
+               inputs: 1e-5); bit-equal over two runs; then timed in
+               turns at every B7 shape at bs 2 against the plain backward
+               and the library gradient (autograd through cuDNN's grouped
+               conv, BN and SiLU, TF32 off), summed over a step's 51
+               calls, against the bound.
   3b. connected — the union-find labelling (``ops/connected.py``; tile,
                seam and finalize kernels), its labels and its fused
                per-label areas bit-exact against the plain version at (64,
@@ -113,9 +125,16 @@ exit:
                full width (400x640 twin frames) and cut depth, in a
                temporary directory: every summary key present and finite,
                B7's training loss falling, launches as the cuts derive
-               them; then one B7 training step at bs 2 split into the
-               depthwise forward kernel, the plain f32 depthwise backward
-               and the rest, in device time, beside its wall time.
+               them (each depthwise backward kernel 51 times a B7 training
+               step); then one B7 training step at bs 2 split into the
+               depthwise forward kernel, the backward's kernels and the
+               rest, in device time, beside its wall time, both against
+               run N (the plain backward's step; PERF.md), with exactly 51
+               forward and 51 x 3 backward launches; and B7's first 3
+               training losses from one init with the backward's kernels
+               and with the plain backward on the card (the first equal,
+               the rest within 1e-4 relative; the plain backward runs no
+               time in the kernels' run).
  12. parallel — the mains on ranks of a process group (``parallel/``),
                spawned by ``run_ranks``, cuDNN deterministic: on an NCCL
                group of one, the 2019 main (bs 64, stats taps on) bit-equal
@@ -154,6 +173,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -240,7 +260,6 @@ def _resources(ptxas_log: str) -> list[str]:
     """Each kernel of an ``nvcc -Xptxas=-v`` log with its registers, stack
     frame and spill bytes, the kernel's name demangled where c++filt is
     on the PATH."""
-    import re
     import shutil
 
     out, name, frame = [], "?", ""
@@ -527,8 +546,8 @@ def _to_device(tree, device):
 
 
 def _dw_grad_check(shape_nhwc, k, dtype, gen) -> float:
-    """The Function's gradient (kernel forward, plain f32 backward) in x, w,
-    a and b against autograd through the plain version under one cotangent,
+    """The Function's gradient (kernel forward, the backward's kernels) in
+    x, w, a and b against autograd through the plain version under one cotangent,
     on the same values in float32 and cast once to each input's dtype (in
     bf16, autograd would sum the k^2 taps' dx contributions in bf16);
     returns the worst error relative to its gradient's largest magnitude.
@@ -565,10 +584,11 @@ def phase_kernels_depthwise(card: str, chunk: int):
     cases += [((chunk, 26, 40, 960), 5, torch.float32, 0, 0)]
     # the kernel's other paths: C not a multiple of 8 (scalar channels), W
     # shorter than a thread's run, H = 1, an x off 16-byte alignment
-    for dtype in (torch.float32, torch.bfloat16):
-        cases += [((3, 13, 7, 40), 5, dtype, 0, 0), ((3, 9, 11, 36), 3, dtype, 0, 0), ((3, 9, 11, 36), 5, dtype, 0, 0),
-                  ((2, 6, 3, 64), 3, dtype, 0, 0), ((2, 6, 3, 64), 5, dtype, 0, 0), ((2, 1, 17, 40), 3, dtype, 0, 0),
-                  ((2, 1, 17, 40), 5, dtype, 0, 0), ((2, 9, 12, 64), 3, dtype, 0, 1)]
+    edge = [case for dtype in (torch.float32, torch.bfloat16) for case in (
+        ((3, 13, 7, 40), 5, dtype, 0, 0), ((3, 9, 11, 36), 3, dtype, 0, 0), ((3, 9, 11, 36), 5, dtype, 0, 0),
+        ((2, 6, 3, 64), 3, dtype, 0, 0), ((2, 6, 3, 64), 5, dtype, 0, 0), ((2, 1, 17, 40), 3, dtype, 0, 0),
+        ((2, 1, 17, 40), 5, dtype, 0, 0), ((2, 9, 12, 64), 3, dtype, 0, 1))]
+    cases += edge
     worst = 0.0
     for shape, k, dtype, n_blocks, offset in cases:
         x, wt, a, bias = _dw_inputs(shape, k, dtype, gen, offset)
@@ -617,6 +637,7 @@ def phase_kernels_depthwise(card: str, chunk: int):
          f"{sums['kernel_device']:.4f} ms, F.conv2d(groups=C) {sums['library_device']:.4f} ms; bound "
          f"{sums['bound']:.4f} ms ({100 * sums['bound'] / sums['kernel_device']:.1f}% of the kernel's device time)")
 
+    bwd = _dw_bwd_pair(card, b7, edge, gen)
     agree = _b7_card_vs_cpu()
     _log("kernels", f"B7 U-Net on the card (the kernel, f32, no TF32) vs the port's CPU path (the "
          f"plain version) at (2,48,64,1): logits max rel err {agree['logit_err']:.3g}, "
@@ -627,7 +648,7 @@ def phase_kernels_depthwise(card: str, chunk: int):
         for dtype in (torch.float32, torch.bfloat16):
             e = _dw_grad_check((4, h, w, c), k, dtype, gen)
             _log("kernels", f"dw gradient (4,{h},{w},{c}) k{k} {str(dtype)[6:]}: the Function (kernel forward, "
-                 f"plain f32 backward) vs autograd through the plain version, worst of dx, dw, da, db "
+                 f"backward kernels) vs autograd through the plain version, worst of dx, dw, da, db "
                  f"{e:.3g} of the largest gradient (bound {1e-5 if dtype == torch.float32 else 1e-2:g})")
 
     # one B7 U-Net apply (flip TTA) on a chunk of full frames launches the kernel 102 times
@@ -658,7 +679,108 @@ def phase_kernels_depthwise(card: str, chunk: int):
          f"({chunk},400,640,1) bf16 TTA ({dw_us / 1000:.3f} ms of {all_us / 1000:.3f} ms device time); "
          f"apply {apply_ms:.2f} ms; peak memory {peak_gb:.2f} GB on {card}")
     return {"err": worst, "ms": ms["kernel"], "plain_ms": ms["plain"], "library_ms": ms["library"],
-            "bound": ms["bound"], "b7_apply_ms": apply_ms, "b7_peak_gb": peak_gb}
+            "bound": ms["bound"], "b7_apply_ms": apply_ms, "b7_peak_gb": peak_gb, "bwd": bwd}
+
+
+def _dw_grad_inputs(shape_nhwc, k, dtype, gen, offset: int = 0, channels_last: bool = True):
+    """``_dw_inputs`` with w in float32, as training keeps it, and a
+    cotangent in x's dtype (channels_last, or NCHW-contiguous as autograd
+    may hand it over)."""
+    import torch
+
+    x, wt, a, bias = _dw_inputs(shape_nhwc, k, dtype, gen, offset)
+    gy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+    return x, wt.float(), a, bias, gy.contiguous(memory_format=torch.channels_last if channels_last else
+                                                 torch.contiguous_format)
+
+
+def _dw_bwd_pair(card: str, b7: dict, edge: list, gen) -> dict:
+    """The backward's kernels (the pair: tile and dx passes, with the
+    reduce) against the plain backward ``dw_conv_bn_silu_bwd`` on the same
+    inputs: at every B7 shape of
+    a training step (bs 2) and the forward's other paths, in both dtypes,
+    plus a cotangent in NCHW memory; within ``grad_within_tolerance``
+    (ops/depthwise.py: dx one bf16 ulp or 1e-5 of max|dx|, >= 99.9% equal,
+    f32 1e-5 of max|dx|; dw, da, db 1e-4 of each's largest magnitude, f32
+    1e-5), and bit-equal over two runs.  Then every B7 shape at bs 2 in
+    bf16 timed in turns: the pair, the plain backward and the library
+    gradient (autograd through ``F.silu(F.conv2d(x, w, groups=C) * a + b)``,
+    the backward alone, TF32 off), the pair and the library also in device
+    time, each against its bound; sums over the step's 51 calls."""
+    import torch
+    import torch.nn.functional as F
+    from iris_style_transfer_tpu_torch.ops import depthwise as dw
+
+    cases = [((2, h, w, c), k, dtype, n, 0, True) for dtype in (torch.bfloat16, torch.float32)
+             for (k, c, h, w), n in b7.items()]
+    cases += [(shape, k, dtype, 0, offset, True) for shape, k, dtype, _, offset in edge]
+    cases += [((2, 9, 12, 64), 3, torch.bfloat16, 0, 1, False)]
+    worst = 0.0
+    for shape, k, dtype, n_blocks, offset, cl in cases:
+        x, wt, a, bias, gy = _dw_grad_inputs(shape, k, dtype, gen, offset, cl)
+        pb = dw.plan_bwd(tuple(x.shape), k, x.element_size(), x.data_ptr() % 16 == 0 and gy.data_ptr() % 16 == 0)
+        got, again = dw._kernel_bwd(x, wt, a, bias, k, gy), dw._kernel_bwd(x, wt, a, bias, k, gy)
+        want = dw.dw_conv_bn_silu_bwd(x, wt, a, bias, k, gy)
+        torch.cuda.synchronize()
+        ok, errs = dw.grad_within_tolerance(got, want, dtype)
+        scales = [p.float().abs().max().item() for p in want]
+        equal = (got[0] == want[0]).float().mean().item()
+        if not ok:
+            raise AssertionError(f"dw backward kernels vs plain out of tolerance at {shape} k{k} {dtype} ({pb}): "
+                                 f"max_abs_err dx, dw, da, db {errs}, largest magnitudes {scales}, "
+                                 f"dx {equal:.6f} equal")
+        if not all(torch.equal(g, h) for g, h in zip(got, again)):
+            raise AssertionError(f"dw backward kernels at {shape} k{k} {dtype}: two runs differ")
+        worst = max(worst, *errs)
+        where = (f"{n_blocks} B7 blocks" if n_blocks else ("x off 16-byte alignment" if offset else "extra case")
+                 ) + ("" if cl else ", NCHW cotangent")
+        _log("kernels", f"dw backward {shape} k{k} {str(dtype)[6:]} ({where}; tile pass vec {pb.tile.vec}, "
+             f"{pb.tile.blocks} blocks of {pb.tile.threads} threads, {pb.tile.smem} B shared, {pb.groups} dw row "
+             f"groups; dx pass {pb.dx.blocks} blocks; {pb.tiles} tiles reduced): max_abs_err / largest magnitude "
+             f"dx {errs[0] / scales[0]:.3g}, dw {errs[1] / scales[1]:.3g}, da {errs[2] / scales[2]:.3g}, db "
+             f"{errs[3] / scales[3]:.3g}; dx {100 * equal:.4f}% equal; bit-equal over two runs; within tolerance")
+        del x, wt, a, bias, gy, got, again, want
+
+    sums = {"pair": 0.0, "plain": 0.0, "library": 0.0, "pair_device": 0.0, "library_device": 0.0,
+            "bound_bytes": 0.0, "bound_ops": 0.0, "bound": 0.0}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for (k, c, h, w), n in b7.items():
+            x, wt, a, bias, gy = _dw_grad_inputs((2, h, w, c), k, torch.bfloat16, gen)
+            leaves = [x.detach().requires_grad_(True), wt.to(x.dtype).requires_grad_(True),
+                      a.detach().requires_grad_(True), bias.detach().requires_grad_(True)]
+            y = F.silu(F.conv2d(leaves[0], leaves[1], padding=k // 2, groups=c) * leaves[2].view(1, -1, 1, 1)
+                       + leaves[3].view(1, -1, 1, 1))
+            gy_lib = gy.float()
+            fns = {"pair": lambda: dw._kernel_bwd(x, wt, a, bias, k, gy),
+                   "library": lambda: torch.autograd.grad(y, leaves, gy_lib, retain_graph=True)}
+            dev = {key: _device_ms(fn) for key, fn in fns.items()}
+            fns["plain"] = lambda: dw.dw_conv_bn_silu_bwd(x, wt, a, bias, k, gy)
+            t = _turns(fns)
+            # x and gy read, dx written (x's dtype); w, a, b read and dw, da, db
+            # written (f32); the recomputed conv, dx's and dw's k*k FMAs a pixel
+            tb, to = _bound(_nbytes(x, gy, x, wt, a, bias, wt, a, bias))[0], _bound(0, 6 * k * k * x.numel(), "f32")[0]
+            for key, v in (("pair", t["pair"]), ("plain", t["plain"]), ("library", t["library"]),
+                           ("pair_device", dev["pair"]), ("library_device", dev["library"]), ("bound_bytes", tb),
+                           ("bound_ops", to), ("bound", max(tb, to))):
+                sums[key] += n * v
+            _log("kernels", f"dw backward (2,{h},{w},{c}) k{k} bf16 x {n} blocks/step, ms/call on {card}: pair "
+                 f"{t['pair']:.4f} (device {dev['pair']:.4f}), plain {t['plain']:.4f}, library gradient "
+                 f"{t['library']:.4f} (device {dev['library']:.4f}), bound {max(tb, to):.4f} "
+                 f"({'bytes' if tb >= to else 'operations'}; {100 * max(tb, to) / dev['pair']:.1f}% of it in "
+                 f"device time)")
+            del x, wt, a, bias, gy, leaves, y, gy_lib, fns
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    bound = (sums["bound"], "bytes" if sums["bound_bytes"] >= sums["bound_ops"] else "operations")
+    _log("kernels", f"dw backward per B7 training step at bs 2 (sum of blocks x ms), on {card}: CUDA events: pair "
+         f"{sums['pair']:.4f} ms, plain {sums['plain']:.4f} ms, library gradient {sums['library']:.4f} ms; device "
+         f"time: pair {sums['pair_device']:.4f} ms, library gradient {sums['library_device']:.4f} ms; bound "
+         f"{bound[0]:.4f} ms (bytes {sums['bound_bytes']:.4f}, operations {sums['bound_ops']:.4f}; "
+         f"{100 * bound[0] / sums['pair_device']:.1f}% of the pair's device time)")
+    return {"err": worst, "ms": sums["pair"], "plain_ms": sums["plain"], "library_ms": sums["library"],
+            "device_ms": sums["pair_device"], "bound": bound}
 
 
 def _stats_inputs(shape, dtype, gen):
@@ -1886,15 +2008,73 @@ def _check_summary(where: str, summary: dict, keys) -> None:
         raise AssertionError(f"{where}: summary keys missing or not finite: {missing}")
 
 
+# run N (PERF.md; an H100 80GB HBM3 at 700 W): one B7 training step at bs 2
+# with the plain f32 depthwise backward, in CUDA events and in device time
+RUN_N_STEP_MS = {"wall": 312.25, "device": 119.33}
+B7_LOSS_STEPS = 3  # the first closures only, as the rank checks hold them (AGREEING_CLOSURES)
+B7_LOSS_RTOL = 1e-4
+
+
+def _b7_losses(plain: bool, steps: int = B7_LOSS_STEPS) -> list[float]:
+    """The first ``steps`` losses of B7 training (the gaze tool's
+    ``b7_train_loss`` and Adam at lr 1e-3, one bs-2 batch of 400x640 twin
+    frames, seeded init, cuDNN deterministic), with the backward's kernels
+    or, ``plain``, with ``dw_conv_bn_silu_bwd`` on the card in their place;
+    with the kernels, the plain backward must not run."""
+    import torch
+    from iris_style_transfer_tpu_torch.data import synthetic_eye_batch
+    from iris_style_transfer_tpu_torch.models import EfficientNet
+    from iris_style_transfer_tpu_torch.ops import depthwise as dw
+    from iris_style_transfer_tpu_torch.tools.replicate_synthetic_gaze import b7_train_loss
+    from iris_style_transfer_tpu_torch.workloads.iris_classification import trainable
+
+    imgs, segs, _ = synthetic_eye_batch(2, seed=SEED)
+    x, y = torch.from_numpy(imgs).cuda(), torch.from_numpy(segs).long().cuda()
+    params = EfficientNet.init(torch.Generator().manual_seed(SEED), device="cuda")
+    opt = torch.optim.Adam(trainable(params), lr=1e-3)
+    real_kernel, real_plain, plain_calls = dw._kernel_bwd, dw.dw_conv_bn_silu_bwd, [0]
+
+    def counting_plain(*args, **kwargs):
+        plain_calls[0] += 1
+        return real_plain(*args, **kwargs)
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    dw.dw_conv_bn_silu_bwd = counting_plain
+    if plain:
+        dw._kernel_bwd = counting_plain
+    try:
+        losses = []
+        for _ in range(steps):
+            loss = b7_train_loss(params, x, y)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            losses.append(loss.item())
+    finally:
+        dw._kernel_bwd, dw.dw_conv_bn_silu_bwd = real_kernel, real_plain
+        torch.backends.cudnn.deterministic = det
+    if plain_calls[0] != (51 * steps if plain else 0):
+        raise AssertionError(f"B7 training with the {'plain backward' if plain else 'backward kernels'} ran "
+                             f"dw_conv_bn_silu_bwd {plain_calls[0]} times")
+    return losses
+
+
 def _b7_step_split(card: str) -> dict:
     """One B7 training step at bs 2 on 400x640 frames (the gaze tool's
-    ``b7_train_loss`` and Adam), split three ways in device time: the
-    depthwise kernel's forward (each launch's mean time x its 51 launches),
-    the plain f32 depthwise backward (the device time torch.profiler gives
-    the ``DwConvBnSiluBackward`` nodes of the traced step; also its 51
-    calls at the step's shapes alone, in device time) and the rest of the
-    step's device time.  The step's wall time in CUDA events beside it says
-    how far the host sets the pace."""
+    ``b7_train_loss`` and Adam), split in device time: the depthwise
+    kernel's forward and the backward's three kernels (each instantiation's
+    mean time x its launches a step, as torch.profiler drops events) and the
+    rest of the step's device time; the step's wall time in CUDA events beside it
+    says how far the host sets the pace; both against run N.  Launches are
+    counted exactly (51 forward, 51 of each backward kernel a step), with
+    the cotangents the wrapper copied to channels_last.  Then the first
+    ``B7_LOSS_STEPS`` training losses from one init with the kernels and
+    with the plain backward: the first bit-equal (one forward, no update
+    yet), the others within ``B7_LOSS_RTOL`` relative (the two gradients
+    differ by rounding, and Adam's first steps are about lr times each
+    gradient's sign, which rounding flips only where a gradient is near
+    zero)."""
     import torch
     from iris_style_transfer_tpu_torch.data import synthetic_eye_batch
     from iris_style_transfer_tpu_torch.models import EfficientNet
@@ -1916,38 +2096,45 @@ def _b7_step_split(card: str) -> dict:
     wall_ms = min(_time_ms(step, iters=5) for _ in range(2))
     step_ms = _device_ms(step, n=2)
 
-    def backward_nodes(ev):
-        return max((getattr(e, "device_time_total", 0) for e in ev if "DwConvBnSiluBackward" in e.key), default=0)
+    names = ("dw_conv_bn_silu_kernel", "dw_bwd_tile_kernel", "dw_bwd_dx_kernel", "dw_bwd_reduce_kernel")
+    counters = (dw.LAUNCHES, dw.BWD_LAUNCHES, dw.COPIES)
+    _reset(counters)
+    ev, tries = _trace(step, lambda ev: all(any(n in e.key for e in _device_events(ev)) for n in names),
+                       "the depthwise forward and backward kernels in one B7 training step")
+    launched = {k: v / tries for counts in counters for k, v in counts.items()}
+    want = {"dw_conv_bn_silu": 51, "dw_bwd_tile": 51, "dw_bwd_dx": 51, "dw_bwd_reduce": 51}
+    if {k: launched[k] for k in want} != want:
+        raise AssertionError(f"one B7 training step launched {launched}; {want} expected")
+    # each instantiation's mean time x its launches a step: k from its template
+    # arguments (23 blocks take k = 3, 28 take k = 5), the reduce kernel 51
+    per_k = {3: 0, 5: 0}
+    for (k, *_), n in _b7_depthwise_shapes().items():
+        per_k[k] += n
 
-    before = dw.LAUNCHES["dw_conv_bn_silu"]
-    ev, tries = _trace(step, lambda ev: backward_nodes(ev) > 0 and any("dw_conv_bn_silu_kernel" in e.key for e in ev),
-                       "dw_conv_bn_silu_kernel and the DwConvBnSiluBackward nodes in one B7 training step")
-    launched = (dw.LAUNCHES["dw_conv_bn_silu"] - before) / tries
-    if launched != 51:
-        raise AssertionError(f"one B7 training step launched dw_conv_bn_silu {launched} times; 51 expected")
-    kernel = [e for e in _device_events(ev) if "dw_conv_bn_silu_kernel" in e.key]
-    fwd_ms = sum(e.self_device_time_total / e.count for e in kernel) * 51 / 1e3
-    bwd_ms = backward_nodes(ev) / 1e3
+    def per_step(key: str) -> int:
+        m = re.search(r"<[^<>]*, ([35]), [14]>", key)
+        return per_k[int(m.group(1))] if m else 51
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    calls = []
-    for (k, c, h, w), n in _b7_depthwise_shapes().items():
-        xb, wt, a, b = _dw_inputs((2, h, w, c), k, torch.bfloat16, gen)
-        gy = torch.randn(xb.shape, generator=gen, device="cuda").to(torch.bfloat16)
-        gy = gy.contiguous(memory_format=torch.channels_last)
-        calls += [(xb, wt.float(), a, b, k, gy)] * n  # w stays float32 in training
-
-    def backward_all():
-        for xb, wt, a, b, k, gy in calls:
-            dw.dw_conv_bn_silu_bwd(xb, wt, a, b, k, gy)
-
-    alone_ms = _device_ms(backward_all, n=2)
-    out = {"wall_ms": wall_ms, "device_ms": step_ms, "dw_fwd_ms": fwd_ms, "dw_bwd_ms": bwd_ms,
-           "dw_bwd_alone_ms": alone_ms, "rest_ms": step_ms - fwd_ms - bwd_ms}
+    kms = {n: sum(e.self_device_time_total / e.count * per_step(e.key) for e in _device_events(ev) if n in e.key) / 1e3
+           for n in names}
+    fwd_ms, pair_ms = kms[names[0]], sum(kms[n] for n in names[1:])
+    losses_pair, losses_plain = _b7_losses(plain=False), _b7_losses(plain=True)
+    rel = [abs(p - q) / abs(q) for p, q in zip(losses_pair, losses_plain)]
+    if losses_pair[0] != losses_plain[0] or max(rel) > B7_LOSS_RTOL:
+        raise AssertionError(f"B7's first {B7_LOSS_STEPS} training losses: backward kernels {losses_pair}, plain "
+                             f"backward {losses_plain}; the first must be equal, the rest within {B7_LOSS_RTOL:g}")
+    out = {"wall_ms": wall_ms, "device_ms": step_ms, "dw_fwd_ms": fwd_ms, "dw_bwd_ms": pair_ms,
+           "rest_ms": step_ms - fwd_ms - pair_ms, "launches": launched,
+           "losses": losses_pair, "losses_plain": losses_plain}
     _log("replicate", f"one B7 training step at (2,400,640,1) bs 2, bf16 activations, on {card}: wall "
-         f"{wall_ms:.2f} ms (CUDA events), device {step_ms:.2f} ms: depthwise forward kernel {fwd_ms:.2f} ms "
-         f"({100 * fwd_ms / step_ms:.1f}%), plain f32 depthwise backward {bwd_ms:.2f} ms ({100 * bwd_ms / step_ms:.1f}%; "
-         f"its 51 calls alone {alone_ms:.2f} ms), rest {out['rest_ms']:.2f} ms ({100 * out['rest_ms'] / step_ms:.1f}%)")
+         f"{wall_ms:.2f} ms (CUDA events; run N {RUN_N_STEP_MS['wall']}), device {step_ms:.2f} ms (run N "
+         f"{RUN_N_STEP_MS['device']}): depthwise forward kernel {fwd_ms:.3f} ms ({100 * fwd_ms / step_ms:.1f}%), "
+         f"backward kernels {pair_ms:.3f} ms ({100 * pair_ms / step_ms:.1f}%; tile {kms[names[1]]:.3f}, dx "
+         f"{kms[names[2]]:.3f}, reduce {kms[names[3]]:.3f}), rest {out['rest_ms']:.2f} ms "
+         f"({100 * out['rest_ms'] / step_ms:.1f}%); launches a step {launched}")
+    _log("replicate", f"B7's first {B7_LOSS_STEPS} training losses from one init: backward kernels "
+         f"{losses_pair}, plain backward {losses_plain}; relative differences {[f'{r:.3g}' for r in rel]} "
+         f"(bound {B7_LOSS_RTOL:g}, the first equal)")
     return out
 
 
@@ -1969,7 +2156,7 @@ def phase_replicate(card: str) -> dict:
     from iris_style_transfer_tpu_torch.workloads.ist_openeds2020 import SEG_CHUNK
 
     t_phase = time.perf_counter()
-    counters = (c1.LAUNCHES, rp.LAUNCHES, rs.LAUNCHES, dw.LAUNCHES)
+    counters = (c1.LAUNCHES, rp.LAUNCHES, rs.LAUNCHES, dw.LAUNCHES, dw.BWD_LAUNCHES)
     twins: dict = {}  # made once, for both recognition tools and the counts below
     real_twin, real_b7 = (tool_2019.synthetic_openeds2019, tool_rot.synthetic_openeds2019), tool_gaze.train_efficientnet
     b7_losses = []
@@ -2014,7 +2201,8 @@ def phase_replicate(card: str) -> dict:
 
     # the launches each cut derives: conv1 and relu_pool_fwd once per VGG19
     # pass, relu_pool_bwd once per NST closure, the depthwise kernel 51
-    # times per B7 training forward and 102 per flip-TTA apply
+    # times per B7 training forward and 102 per flip-TTA apply, each of the
+    # depthwise backward's three kernels 51 times per B7 training step
     ist_batches = -(-n_test // REP_2019["ist_bs"])
     vgg_2019 = (REP_2019["epochs"] * (n_train // REP_2019["bs"] + -(-n_test // REP_2019["bs"]))
                 + ist_batches * (MAIN_CLOSURES + 4))
@@ -2023,14 +2211,16 @@ def phase_replicate(card: str) -> dict:
     b7_applies = (-(-g["n_eval"] // 8) + -(-g["n_train"] // 8) + 1
                   + 2 * -(-g["n_eval"] // g["ist_bs"]) * -(-g["ist_bs"] // SEG_CHUNK))
     gaze_nst = -(-g["n_eval"] // g["ist_bs"])
+    b7_steps = g["effnet_epochs"] * (g["n_train"] // 2)
+    no_bwd = {k: 0 for k in dw.BWD_LAUNCHES}
     want = {
         "recognition": {"conv1": vgg_2019, "relu_pool_fwd": vgg_2019, "relu_pool_bwd": ist_batches * MAIN_CLOSURES,
-                        "relu_stats_fwd": 0, "relu_stats_bwd": 0, "dw_conv_bn_silu": 0},
+                        "relu_stats_fwd": 0, "relu_stats_bwd": 0, "dw_conv_bn_silu": 0, **no_bwd},
         "rotation": {"conv1": vgg_rot, "relu_pool_fwd": vgg_rot, "relu_pool_bwd": 0, "relu_stats_fwd": 0,
-                     "relu_stats_bwd": 0, "dw_conv_bn_silu": 0},
+                     "relu_stats_bwd": 0, "dw_conv_bn_silu": 0, **no_bwd},
         "gaze": {"conv1": gaze_nst * (MAIN_CLOSURES + 2), "relu_pool_fwd": gaze_nst * (MAIN_CLOSURES + 2),
                  "relu_pool_bwd": gaze_nst * MAIN_CLOSURES, "relu_stats_fwd": 0, "relu_stats_bwd": 0,
-                 "dw_conv_bn_silu": 51 * g["effnet_epochs"] * (g["n_train"] // 2) + 102 * b7_applies},
+                 "dw_conv_bn_silu": 51 * b7_steps + 102 * b7_applies, **{k: 51 * b7_steps for k in dw.BWD_LAUNCHES}},
     }
     for name, w in want.items():
         if out[name]["launches"] != w:
@@ -2631,6 +2821,7 @@ def main() -> int:
 
     card = smi.replace(",", " |")
     phase_build()
+    from iris_style_transfer_tpu_torch.ops import depthwise as dw
     from iris_style_transfer_tpu_torch.workloads.ist_openeds2020 import SEG_CHUNK
 
     k = phase_kernels(card)
@@ -2651,34 +2842,39 @@ def main() -> int:
     train = phase_train2019(card)
     gaze = phase_train_gaze(card)
     phase_real_data(card)
-    phase_replicate(card)
+    rep = phase_replicate(card)
     phase_parallel(card, train["frozen"], gaze["estimator1"]["log"])
     src = "iris_style_transfer_tpu_torch/ops/csrc/"
     stats_fwd = launches_st["relu_stats_fwd"] + launches2020_st["relu_stats_fwd"]
     stats_bwd = launches_st["relu_stats_bwd"] + launches2020_st["relu_stats_bwd"]
     def row(name, source, replaces, launches, err, ms, plain_ms, bound, library_ms):
         return {"name": name, "route": "cuda", "source": src + source,
-                "replaces": "iris_style_transfer_tpu/ops/" + replaces, "launches": launches, "max_abs_err": err,
+                "replaces": "iris_style_transfer_tpu/" + replaces, "launches": launches, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms}
 
     report = {"kernels": [
-        row("relu_pool_fwd", "relu_pool.cu", "pallas_pool_paired.py:640", launches["relu_pool_fwd"], k["err_fwd"],
+        row("relu_pool_fwd", "relu_pool.cu", "ops/pallas_pool_paired.py:640", launches["relu_pool_fwd"], k["err_fwd"],
             k["fwd"], k["fwd_plain"], k["bound_fwd"], k["fwd_lib"]),
-        row("relu_pool_bwd", "relu_pool.cu", "pallas_pool_paired.py:652", launches["relu_pool_bwd"], k["err_bwd"],
+        row("relu_pool_bwd", "relu_pool.cu", "ops/pallas_pool_paired.py:652", launches["relu_pool_bwd"], k["err_bwd"],
             k["bwd"], k["bwd_plain"], k["bound_bwd"], None),
-        row("dw_conv_bn_silu", "depthwise.cu", "pallas_depthwise.py:136", launches2020["dw_conv_bn_silu"],
+        row("dw_conv_bn_silu", "depthwise.cu", "ops/pallas_depthwise.py:136", launches2020["dw_conv_bn_silu"],
             kd["err"], kd["ms"], kd["plain_ms"], kd["bound"], kd["library_ms"]),
-        row("gram_matrix", "gram.cu", "pallas_gram.py:51", gram_launches, kg["err"], kg["ms"], kg["plain_ms"],
+        row("gram_matrix", "gram.cu", "ops/pallas_gram.py:51", gram_launches, kg["err"], kg["ms"], kg["plain_ms"],
             kg["bound"], kg["library_ms"]),
-        row("relu_stats_fwd", "relu_stats.cu", "pallas_relu_stats.py:159", stats_fwd, ks["err_fwd"], ks["fwd"],
+        row("relu_stats_fwd", "relu_stats.cu", "ops/pallas_relu_stats.py:159", stats_fwd, ks["err_fwd"], ks["fwd"],
             ks["fwd_plain"], ks["bound_fwd"], None),
-        row("relu_stats_bwd", "relu_stats.cu", "pallas_relu_stats.py:175", stats_bwd, ks["err_bwd"], ks["bwd"],
+        row("relu_stats_bwd", "relu_stats.cu", "ops/pallas_relu_stats.py:175", stats_bwd, ks["err_bwd"], ks["bwd"],
             ks["bwd_plain"], ks["bound_bwd"], None),
-        row("conv1", "conv1.cu", "pallas_conv1.py:143", train["frozen"]["launches"]["conv1"], kc["err"], kc["ms"],
+        row("conv1", "conv1.cu", "ops/pallas_conv1.py:143", train["frozen"]["launches"]["conv1"], kc["err"], kc["ms"],
             kc["plain_ms"], kc["bound"], kc["library_ms"]),
         row("connected_components", "connected.cu",
-            "connected.py:20 connected_components (a lax.while_loop of min-label propagation, not a Pallas kernel)",
+            "ops/connected.py:20 connected_components (a lax.while_loop of min-label propagation, not a Pallas kernel)",
             kcc["launches"], kcc["err"], kcc["ms"], kcc["plain_ms"], kcc["bound"], None),
+        row("dw_conv_bn_silu_bwd", "depthwise.cu",
+            "models/efficientnet.py:127-150 (PALLAS_DW off: the XLA gradient of the grouped conv, batchnorm "
+            "and SiLU; the JAX package has no Pallas backward)",
+            sum(rep["gaze"]["launches"][n] for n in dw.BWD_LAUNCHES),
+            kd["bwd"]["err"], kd["bwd"]["ms"], kd["bwd"]["plain_ms"], kd["bwd"]["bound"], kd["bwd"]["library_ms"]),
     ]}
     _log("done", f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(report))

@@ -136,7 +136,8 @@ def train_estimator2(frames, gaze, *, epochs: int = 6, bs: int = 8, lr: float = 
     return params, stacked(losses)
 
 
-def main(argv: list[str] | None = None) -> dict:
+def parser() -> argparse.ArgumentParser:
+    """The tool's flags, at the JAX tool's defaults."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--n_train", type=int, default=160)
     ap.add_argument("--n_eval", type=int, default=32)
@@ -150,7 +151,11 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--out", type=str, default="")
     ap.add_argument("--device", type=str, default="cuda",
                     help="torch device to run on; a CUDA request without CUDA fails")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv: list[str] | None = None) -> dict:
+    args = parser().parse_args(argv)
     device = resolve_device(args.device)
 
     t = time.perf_counter()

@@ -119,7 +119,7 @@ def test_depthwise_kernel_rejects_other_layouts(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,k", [((2, 16, 20, 256), 3), ((3, 13, 7, 40), 5), ((3, 9, 11, 36), 3)])
 def test_depthwise_gradient_matches_autograd_through_plain(cuda, dtype, shape, k):
-    """The Function (kernel forward, plain f32 backward) against autograd
+    """The Function (kernel forward, the backward's kernels) against autograd
     through the plain version under one cotangent, on the same values in
     float32, cast once to each input's dtype (in bf16, autograd would sum
     the taps' dx contributions in bf16): f32 within 1e-5 of each
@@ -136,6 +136,62 @@ def test_depthwise_gradient_matches_autograd_through_plain(cuda, dtype, shape, k
         assert g.dtype == t.dtype
         err = (g.float() - p.to(g.dtype).float()).abs().max().item()
         assert err <= tol * p.abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,k", [((2, 104, 160, 288), 3), ((2, 26, 40, 1344), 5)])  # B7 shapes at bs 2
+def test_depthwise_backward_kernels_within_tolerance(cuda, dtype, shape, k):
+    """The backward's three kernels against the plain backward on the same
+    inputs (w in float32, as training keeps it), within
+    ``grad_within_tolerance``, bit-equal over two runs, one launch of each."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x, wt, a, bias = _dw_inputs(shape, k, dtype, gen)
+    gy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype).contiguous(memory_format=torch.channels_last)
+    before = dict(dw.BWD_LAUNCHES)
+    got = dw.dw_conv_bn_silu_grad(x, wt.float(), a, bias, k, gy)
+    assert {n: dw.BWD_LAUNCHES[n] - before[n] for n in before} == {n: 1 for n in before}
+    again = dw.dw_conv_bn_silu_grad(x, wt.float(), a, bias, k, gy)
+    want = dw.dw_conv_bn_silu_bwd(x, wt.float(), a, bias, k, gy)
+    ok, errs = dw.grad_within_tolerance(got, want, dtype)
+    assert ok, errs
+    assert all(torch.equal(g, h) for g, h in zip(got, again))
+    assert got[0].is_contiguous(memory_format=torch.channels_last) and got[1].shape == (shape[-1], 1, k, k)
+
+
+def test_depthwise_backward_kernels_hold_a_tiny_cotangent(cuda):
+    """A cotangent no larger than 3e-6, as late in B7's training, at the B7
+    shape (2, 288, 104, 160) k3 in bf16: the kernels within
+    ``grad_within_tolerance``, and the cotangent scaled by 2^24 (exact in
+    binary) scales each of the kernels' gradients exactly, so the
+    magnitude of a gradient alone changes no rounding."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x, wt, a, bias = _dw_inputs((2, 104, 160, 288), 3, torch.bfloat16, gen)
+    gy = torch.randn(x.shape, generator=gen, device="cuda")
+    gy = (gy / gy.abs().max() * 3e-6).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    got = dw.dw_conv_bn_silu_grad(x, wt.float(), a, bias, 3, gy)
+    want = dw.dw_conv_bn_silu_bwd(x, wt.float(), a, bias, 3, gy)
+    ok, errs = dw.grad_within_tolerance(got, want, torch.bfloat16)
+    assert ok, errs
+    scaled = dw.dw_conv_bn_silu_grad(x, wt.float(), a, bias, 3, gy * 2**24)
+    assert all(torch.equal(s, g * 2**24) for s, g in zip(scaled, got))
+
+
+def test_depthwise_backward_honours_needs_and_copies_nchw_cotangents(cuda):
+    """Without x's gradient the dx pass is skipped, without w's, a's and
+    b's the reduce pass; an NCHW cotangent is copied to channels_last once;
+    an x off 16-byte alignment takes the scalar tile pass."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x, wt, a, bias = _dw_inputs((2, 9, 12, 64), 3, torch.bfloat16, gen, offset=1)
+    gy = torch.randn(x.shape, generator=gen, device="cuda").to(torch.bfloat16)  # NCHW-contiguous
+    for needs, launched in (((True, False, False, False), (1, 1, 0)), ((False, True, False, False), (1, 0, 1)),
+                            ((False, False, True, True), (1, 0, 1)), ((True, True, True, True), (1, 1, 1))):
+        before, copies = dict(dw.BWD_LAUNCHES), dw.COPIES["gy_channels_last"]
+        got = dw.dw_conv_bn_silu_grad(x, wt.float(), a, bias, 3, gy, needs)
+        assert tuple(dw.BWD_LAUNCHES[n] - before[n] for n in before) == launched
+        assert dw.COPIES["gy_channels_last"] == copies + 1
+        ok, errs = dw.grad_within_tolerance(got, dw.dw_conv_bn_silu_bwd(x, wt.float(), a, bias, 3, gy, needs),
+                                              torch.bfloat16)
+        assert ok and all((g is None) == (not n) for g, n in zip(got, needs)), errs
 
 
 def test_efficientnet_apply_launches_the_kernel_102_times(cuda):

@@ -12,6 +12,11 @@ XLA form of it (the grouped conv of ``_mbconv``, the folded batchnorm,
 SiLU), and ``_mbconv``'s (x and every parameter) against ``jax.grad`` of the
 JAX block, in float32 within 1e-3 of each gradient's largest magnitude
 (f32 sums over B, H, W taken in another order).
+
+Launch plans: the forward's (``plan``) and the backward kernels'
+(``plan_bwd``) at every B7 shape and at the kernels' edge cases cover each
+output (and each per-tile partial) once and fit the card; on CPU tensors
+the backward is the plain version and launches nothing.
 """
 
 import numpy as np
@@ -159,6 +164,25 @@ _EDGE_SHAPES = [((3, 36, 9, 11), 3, True), ((3, 36, 9, 11), 5, True), ((2, 64, 6
                 ((1, 8 * 37, 5, 300), 5, True), ((5, 1, 1, 1), 3, True)]
 
 
+def _assert_covers_once(pl, shape):
+    """A plan's channels (slice, thread's vector, lane), rows (tile, thread
+    row, the thread's rows ty, ty + rows_t, ... below tile_h) and columns
+    (tile, thread run, pixel of the run) each hit every index once."""
+    bsz, c, h, w = shape
+    pe = pl.cvb * pl.vec
+    assert c % pe == 0 and pl.slices == c // pe
+    assert pl.tile_w == pl.runs * tdw.RUN and pl.blocks == bsz * pl.tiles_h * pl.tiles_w * pl.slices
+    assert pl.threads == pl.cvb * pl.runs * pl.rows_t <= tdw.MAX_THREADS
+    chans = [s * pe + cv * pl.vec + v for s in range(pl.slices) for cv in range(pl.cvb) for v in range(pl.vec)]
+    assert sorted(chans) == list(range(c))
+    rows = [i * pl.tile_h + r for i in range(pl.tiles_h) for ty in range(pl.rows_t)
+            for r in range(ty, pl.tile_h, pl.rows_t) if i * pl.tile_h + r < h]
+    assert sorted(rows) == list(range(h))
+    cols = [i * pl.tile_w + run * tdw.RUN + p for i in range(pl.tiles_w) for run in range(pl.runs)
+            for p in range(tdw.RUN) if i * pl.tile_w + run * tdw.RUN + p < w]
+    assert sorted(cols) == list(range(w))
+
+
 @pytest.mark.parametrize("itemsize", [2, 4])
 @pytest.mark.parametrize("shape,k,aligned", [((32, c, h, w), k, True) for k, c, h, w in _b7_shapes()] + _EDGE_SHAPES)
 def test_dw_plan_covers_every_output_once_and_fits(shape, k, aligned, itemsize):
@@ -169,25 +193,79 @@ def test_dw_plan_covers_every_output_once_and_fits(shape, k, aligned, itemsize):
     bsz, c, h, w = shape
     pl = tdw.plan(shape, k, itemsize, aligned)
     assert pl.vec == (4 if c % 8 == 0 and aligned else 1)
-    assert pl.threads == pl.cvb * pl.runs * pl.rows_t <= tdw.MAX_THREADS
     pe = pl.cvb * pl.vec
-    assert c % pe == 0 and pl.slices == c // pe
-    assert pl.tile_w == pl.runs * tdw.RUN and pl.blocks == bsz * pl.tiles_h * pl.tiles_w * pl.slices
     smem = ((k * k + 2) * pe + 3) // 4 * 4 * 4 + (pl.tile_h + k - 1) * (pl.tile_w + k - 1) * pe * itemsize
     assert pl.smem == smem <= tdw.MAX_SMEM
-    # channels: slice, thread vector cv (vec channels from cv * vec), lane v
-    chans = [s * pe + cv * pl.vec + v for s in range(pl.slices) for cv in range(pl.cvb) for v in range(pl.vec)]
-    assert sorted(chans) == list(range(c))
-    # rows: tile, thread row ty, the thread's rows ty, ty + rows_t, ... below tile_h
-    rows = [i * pl.tile_h + r for i in range(pl.tiles_h) for ty in range(pl.rows_t)
-            for r in range(ty, pl.tile_h, pl.rows_t) if i * pl.tile_h + r < h]
-    assert sorted(rows) == list(range(h))
-    # columns: tile, thread run (RUN pixels from run * RUN), pixel p of the run
-    cols = [i * pl.tile_w + run * tdw.RUN + p for i in range(pl.tiles_w) for run in range(pl.runs)
-            for p in range(tdw.RUN) if i * pl.tile_w + run * tdw.RUN + p < w]
-    assert sorted(cols) == list(range(w))
+    _assert_covers_once(pl, shape)
     if bsz == 32 and c > 8:  # a B7 shape: several waves of blocks on the 132 SMs
         assert pl.blocks >= 8 * 132
+
+
+def _r16(n):
+    return (n + 15) // 16 * 16
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("shape,k,aligned,b7", [((bsz, c, h, w), k, True, True) for bsz in (2, 32)
+                                                for k, c, h, w in _b7_shapes()]
+                         + [(shape, k, aligned, False) for shape, k, aligned in _EDGE_SHAPES])
+def test_dw_plan_bwd_covers_every_output_once_and_fits(shape, k, aligned, b7, itemsize):
+    """The backward's launches: the tile pass covers every pixel and
+    channel once, so every (spatial tile, channel) partial row of the
+    workspace is written once; its dw items (channel, dy, row group) cover
+    every (channel, tap row, tile row) once; the dx pass is the forward's
+    plan of the f32 ``a * dz`` and covers every dx element once; the tile
+    pass fits 256 threads and ``MAX_SMEM_BWD`` (x's halo tile, ``a * dz``'s
+    f32 tile, each thread's da/db partials and each (group, tap,
+    channel)'s dw partial, 16-byte aligned regions); the workspace is
+    ``tiles * (k * k + 2) * C`` floats, at B7's shapes no more than
+    ``a * dz``'s own; the reduce grid's rows fit its 65,535 limit."""
+    bsz, c, h, w = shape
+    pb = tdw.plan_bwd(shape, k, itemsize, aligned)
+    tl = pb.tile
+    assert tl.vec == (4 if c % 8 == 0 and aligned else 1)
+    _assert_covers_once(tl, shape)
+    pe = tl.cvb * tl.vec
+    assert pb.groups == max(1, tl.threads // (pe * k))
+    smem = (((k * k + 2) * pe + 3) // 4 * 4 * 4 + _r16((tl.tile_h + k - 1) * (tl.tile_w + k - 1) * pe * itemsize)
+            + _r16(tl.tile_h * tl.tile_w * pe * 4) + _r16(tl.threads * 2 * tl.vec * 4) + pb.groups * k * k * pe * 4)
+    assert tl.smem == smem <= tdw.MAX_SMEM_BWD
+    # partial rows: block (spatial tile t, slice s) writes channels s * pe .. s * pe + pe - 1 of row t
+    assert pb.tiles == bsz * tl.tiles_h * tl.tiles_w
+    partials = [(t, s * pe + j) for t in range(pb.tiles) for s in range(tl.slices) for j in range(pe)]
+    assert len(partials) == len(set(partials)) == pb.tiles * c
+    assert pb.workspace == pb.tiles * (k * k + 2) * c
+    # dw items: every (channel, dy, tile row) once over the block's items
+    items = [(j, dy, r) for it in range(pb.groups * k * pe) for j, dy, g in [(it % pe, it // pe % k, it // (pe * k))]
+             for r in range(g, tl.tile_h, pb.groups)]
+    assert sorted(items) == [(j, dy, r) for j in range(pe) for dy in range(k) for r in range(tl.tile_h)]
+    assert pb.dx == tdw.plan(shape, k, 4, True)
+    _assert_covers_once(pb.dx, shape)
+    assert pb.reduce_blocks == -(-c // tdw.REDUCE_LANES) * (k * k + 2) and k * k + 2 <= 65535
+    if b7:
+        assert pb.workspace <= bsz * c * h * w
+        assert tl.blocks >= 132  # a wave of blocks on the 132 SMs at bs 2
+
+
+def test_dw_cpu_backward_launches_no_kernel():
+    """On CPU tensors the Function's backward is the plain version itself:
+    no backward kernel launches and no cotangent is copied, also for an
+    NCHW-contiguous cotangent and for each subset of gradients."""
+    x, w, a, b = _inputs((2, 6, 7, 8), 5, seed=3)
+    args = [_nchw(x), from_jax({"w": w})["w"], torch.from_numpy(a), torch.from_numpy(b)]
+    gy = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 8, 6, 7)).astype(np.float32))
+    before, copies = dict(tdw.BWD_LAUNCHES), dict(tdw.COPIES)
+    for needs in ((True, True, True, True), (True, False, False, False), (False, True, True, False)):
+        got = tdw.dw_conv_bn_silu_grad(*args, 5, gy, needs)
+        want = tdw.dw_conv_bn_silu_bwd(*args, 5, gy, needs)
+        assert all(g is None if v is None else torch.equal(g, v) for g, v in zip(got, want))
+        assert [g is not None for g in got] == list(needs)
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    grads = torch.autograd.grad(tdw.dw_conv_bn_silu(*leaves, 5), leaves, gy)
+    assert all(torch.equal(g, v) for g, v in zip(grads, tdw.dw_conv_bn_silu_bwd(*args, 5, gy)))
+    assert tdw.BWD_LAUNCHES == before and tdw.COPIES == copies
+    with pytest.raises(ValueError, match="unsupported device"):
+        tdw.dw_conv_bn_silu_grad(args[0].to("meta"), *args[1:], 5, gy.to("meta"))
 
 
 def _fill(shapes, rng):
