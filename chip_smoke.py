@@ -184,6 +184,8 @@ from concurrent.futures import ThreadPoolExecutor
 # leave the script's directory off sys.path)
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from iris_style_transfer_tpu_torch.runtime.profiler import traced  # noqa: E402  (retries a dropped trace)
+
 NST_CLOSURES = 200
 GRAM_NST_CLOSURES = 40
 MAIN_CLOSURES = 20
@@ -317,36 +319,6 @@ def _turns(fns: dict, iters: int = 20) -> dict:
     return {k: min(v) for k, v in t.items()}
 
 
-PROFILER_TRIES = 4
-
-
-def _trace(fn, ok, what: str, cpu: bool = True):
-    """Key averages of ``fn`` (then a device sync) under torch.profiler,
-    and the number of traces that took.  On the H100 the profiler drops
-    kernel events: after a process's first few traces, the first kernel
-    of each trace, and now and then every event of several short traces
-    in a row.  So a trace that ``ok`` rejects is taken again after a
-    pause, up to PROFILER_TRIES times in all; raises naming ``what`` if
-    none passes.  A caller that counts launches around this call counts
-    those of every try."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
-    for tries in range(1, PROFILER_TRIES + 1):
-        if tries > 1:
-            time.sleep(1.0)
-        with profile(activities=acts) as prof:
-            fn()
-            torch.cuda.synchronize()
-        ev = prof.key_averages()
-        if ok(ev):
-            if tries > 1:
-                _log("profiler", f"{what}: traced on try {tries}")
-            return ev, tries
-    raise AssertionError(f"torch.profiler did not trace {what} in {PROFILER_TRIES} tries")
-
-
 def _device_events(ev) -> list:
     return [e for e in ev if "cuda" in str(getattr(e, "device_type", "")).lower()
             and getattr(e, "self_device_time_total", 0) > 0]
@@ -383,7 +355,7 @@ def _device_ms(fn, n: int = 5) -> float:
     fn()
     torch.cuda.synchronize()
     try:
-        ev, _ = _trace(lambda: [fn() for _ in range(n)], lambda ev: bool(_device_events(ev)),
+        ev, _ = traced(lambda: [fn() for _ in range(n)], lambda ev: bool(_device_events(ev)),
                        "a timed call's kernels", cpu=False)
     except AssertionError as err:
         ms = _queued_ms(fn, n)
@@ -447,7 +419,7 @@ def phase_kernels(card: str):
     fwd_bwd()
     torch.cuda.synchronize()
     names = ("relu_pool_fwd_kernel", "relu_pool_bwd_kernel")
-    ev, _ = _trace(lambda: [fwd_bwd() for _ in range(3)],  # three passes: the profiler has missed single launches
+    ev, _ = traced(lambda: [fwd_bwd() for _ in range(3)],  # three passes: the profiler has missed single launches
                    lambda ev: all(any(k in e.key for e in ev) for k in names),
                    "relu_pool_fwd_kernel and relu_pool_bwd_kernel in three VGG19 forward+backward passes")
     device_us = sum(getattr(e, "self_device_time_total", 0) for e in ev if any(k in e.key for k in names))
@@ -663,19 +635,19 @@ def phase_kernels_depthwise(card: str, chunk: int):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = dw.LAUNCHES["dw_conv_bn_silu"]
-    ev, tries = _trace(apply, lambda ev: any("dw_conv_bn_silu_kernel" in e.key for e in ev),
+    ev, tries = traced(apply, lambda ev: any("dw_conv_bn_silu_kernel" in e.key for e in ev),
                        "dw_conv_bn_silu_kernel in one B7 U-Net apply")
     launched = (dw.LAUNCHES["dw_conv_bn_silu"] - before) / tries
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     events = [e for e in ev if "dw_conv_bn_silu_kernel" in e.key]
-    traced = sum(e.count for e in events)
+    seen = sum(e.count for e in events)
     if launched != 102:
-        raise AssertionError(f"one B7 apply: dw_conv_bn_silu_kernel traced {traced} times, counted "
+        raise AssertionError(f"one B7 apply: dw_conv_bn_silu_kernel traced {seen} times, counted "
                              f"{launched} launches; 102 expected")
     dw_us = sum(getattr(e, "self_device_time_total", 0) for e in events)
     all_us = sum(getattr(e, "self_device_time_total", 0) for e in _device_events(ev))
     apply_ms = min(_time_ms(apply, iters=3) for _ in range(2))
-    _log("kernels", f"profiler: dw_conv_bn_silu_kernel traced {traced} times in one B7 U-Net apply at "
+    _log("kernels", f"profiler: dw_conv_bn_silu_kernel traced {seen} times in one B7 U-Net apply at "
          f"({chunk},400,640,1) bf16 TTA ({dw_us / 1000:.3f} ms of {all_us / 1000:.3f} ms device time); "
          f"apply {apply_ms:.2f} ms; peak memory {peak_gb:.2f} GB on {card}")
     return {"err": worst, "ms": ms["kernel"], "plain_ms": ms["plain"], "library_ms": ms["library"],
@@ -859,18 +831,18 @@ def phase_kernels_relu_stats(card: str):
     fwd_bwd()
     torch.cuda.synchronize()
     before = dict(rs.LAUNCHES)
-    ev, tries = _trace(fwd_bwd, lambda ev: all(any(f"{k}_kernel" in e.key for e in ev) for k in before),
+    ev, tries = traced(fwd_bwd, lambda ev: all(any(f"{k}_kernel" in e.key for e in ev) for k in before),
                        "relu_stats_fwd_kernel and relu_stats_bwd_kernel in one VGG19 fwd+bwd with stats taps")
     counted = {k: (rs.LAUNCHES[k] - before[k]) / tries for k in before}
-    traced = {k: sum(e.count for e in ev if f"{k}_kernel" in e.key) for k in before}
+    seen = {k: sum(e.count for e in ev if f"{k}_kernel" in e.key) for k in before}
     if counted != {"relu_stats_fwd": 4, "relu_stats_bwd": 4}:
-        raise AssertionError(f"one VGG19 fwd+bwd with stats taps counted {counted} launches and traced {traced} "
+        raise AssertionError(f"one VGG19 fwd+bwd with stats taps counted {counted} launches and traced {seen} "
                              "kernels; 4 launches of each, each traced, expected")
     # the profiler has traced fewer relu_stats_fwd kernels than were launched;
     # every relu_stats event it keeps is listed, for the record
     keys = {e.key[:60]: e.count for e in ev if "relu_stats" in e.key}
     _log("kernels", f"one VGG19 fwd+bwd with stats taps at (64,3,224,224) bf16: {counted} launches counted, "
-         f"profiler traced {traced}; its relu_stats events {keys}")
+         f"profiler traced {seen}; its relu_stats events {keys}")
     return {"err_fwd": worst["fwd"], "err_bwd": worst["bwd"], **ms}
 
 
@@ -960,25 +932,25 @@ def phase_kernels_gram(card: str):
     closure()
     bg._kernel_gram(xf32)
     torch.cuda.synchronize()
-    traced = {}
+    seen = {}
     def f32_grams():  # three calls: the profiler has missed single launches here
         for _ in range(3):
             bg._kernel_gram(xf32)
 
     for name, fn, want, kernel in (("closure", closure, 4, "gram_tc_kernel"), ("f32", f32_grams, 3, "gram_fma_kernel")):
         before = bg.LAUNCHES["gram_matrix"]
-        ev, tries = _trace(fn, lambda ev: any(kernel in e.key for e in ev), f"{kernel} in the {name} Grams")
+        ev, tries = traced(fn, lambda ev: any(kernel in e.key for e in ev), f"{kernel} in the {name} Grams")
         counted = (bg.LAUNCHES["gram_matrix"] - before) / tries
-        traced[name] = {k: sum(e.count for e in ev if f"gram_{k}_kernel" in e.key) for k in ("tc", "fma")}
+        seen[name] = {k: sum(e.count for e in ev if f"gram_{k}_kernel" in e.key) for k in ("tc", "fma")}
         if counted != want:
             raise AssertionError(f"{name}: counted {counted} gram launches; {want} expected")
-    if not (traced["closure"]["tc"] and not traced["closure"]["fma"] and traced["f32"]["fma"]
-            and not traced["f32"]["tc"]):
-        raise AssertionError(f"the profiler traced {traced}: a bf16 Gram-loss closure must launch gram_tc_kernel "
+    if not (seen["closure"]["tc"] and not seen["closure"]["fma"] and seen["f32"]["fma"]
+            and not seen["f32"]["tc"]):
+        raise AssertionError(f"the profiler traced {seen}: a bf16 Gram-loss closure must launch gram_tc_kernel "
                              "only, an f32 Gram gram_fma_kernel only")
     _log("kernels", f"one Gram-loss closure at (4,3,512,512) bf16: 4 gram launches counted, profiler traced "
-         f"gram_tc_kernel {traced['closure']['tc']} times and gram_fma_kernel 0; three f32 Grams at (4,512,64,64) "
-         f"traced gram_fma_kernel {traced['f32']['fma']} time(s) and gram_tc_kernel 0")
+         f"gram_tc_kernel {seen['closure']['tc']} times and gram_fma_kernel 0; three f32 Grams at (4,512,64,64) "
+         f"traced gram_fma_kernel {seen['f32']['fma']} time(s) and gram_tc_kernel 0")
     return {"err": worst, "ms": ms[TAPS_512[0]]["kernel"], "plain_ms": ms[TAPS_512[0]]["plain"],
             "library_ms": ms[TAPS_512[0]]["library"], "bound": ms[TAPS_512[0]]["bound"], "taps": ms}
 
@@ -1065,16 +1037,16 @@ def phase_kernels_conv1(card: str):
         torch.cuda.synchronize()
         before = c1.LAUNCHES["conv1"]
         # three passes: the profiler has missed single launches here; bf16 takes the tensor-core kernel
-        ev, tries = _trace(lambda: [VGG19.apply(params, img, compute_dtype=torch.bfloat16) for _ in range(3)],
+        ev, tries = traced(lambda: [VGG19.apply(params, img, compute_dtype=torch.bfloat16) for _ in range(3)],
                            lambda ev: any("conv1_mma_kernel" in e.key for e in ev),
                            "conv1_mma_kernel in three VGG19 forwards")
-    traced = sum(e.count for e in ev if "conv1_mma_kernel" in e.key)
+    seen = sum(e.count for e in ev if "conv1_mma_kernel" in e.key)
     counted = (c1.LAUNCHES["conv1"] - before) / tries
     if counted != 3:
-        raise AssertionError(f"three VGG19 passes traced conv1_mma_kernel {traced} times, counted "
+        raise AssertionError(f"three VGG19 passes traced conv1_mma_kernel {seen} times, counted "
                              f"{counted} launches a trace; 3 launches (one a pass), traced, expected")
     _log("kernels", f"three VGG19 forwards at (64,3,224,224) bf16: 3 conv1 launches counted, profiler traced "
-         f"conv1_mma_kernel {traced} time(s)")
+         f"conv1_mma_kernel {seen} time(s)")
     return {"err": worst, "ms": ms["kernel"], "plain_ms": ms["plain"], "library_ms": ms["library"],
             "bound": ms["bound"]}
 
@@ -1348,7 +1320,7 @@ def _gram_closure_split() -> dict:
         closure()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / 10 * 1e3
-    ev, _ = _trace(lambda: [closure() for _ in range(5)], lambda ev: any("gram" in e.key for e in _device_events(ev)),
+    ev, _ = traced(lambda: [closure() for _ in range(5)], lambda ev: any("gram" in e.key for e in _device_events(ev)),
                    "the Gram kernels in five Gram-loss closures", cpu=False)
     device = sum(e.self_device_time_total for e in _device_events(ev)) / 5 / 1e3
     gram = sum(e.self_device_time_total for e in _device_events(ev) if "gram" in e.key) / 5 / 1e3
@@ -2099,7 +2071,7 @@ def _b7_step_split(card: str) -> dict:
     names = ("dw_conv_bn_silu_kernel", "dw_bwd_tile_kernel", "dw_bwd_dx_kernel", "dw_bwd_reduce_kernel")
     counters = (dw.LAUNCHES, dw.BWD_LAUNCHES, dw.COPIES)
     _reset(counters)
-    ev, tries = _trace(step, lambda ev: all(any(n in e.key for e in _device_events(ev)) for n in names),
+    ev, tries = traced(step, lambda ev: all(any(n in e.key for e in _device_events(ev)) for n in names),
                        "the depthwise forward and backward kernels in one B7 training step")
     launched = {k: v / tries for counts in counters for k, v in counts.items()}
     want = {"dw_conv_bn_silu": 51, "dw_bwd_tile": 51, "dw_bwd_dx": 51, "dw_bwd_reduce": 51}

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from ..ops.depthwise import dw_conv_bn_silu
 from ..ops.image import imagenet_normalize, pad_height
+from ..runtime.profiler import span
 from . import layers as L
 
 # B0 base: (expand, kernel, stride, cin, cout, repeats)
@@ -243,15 +244,17 @@ class EfficientNet:
     def apply(params: dict, x: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
         """Grayscale or RGB frames (B, H, W, C) in [0,1] -> (B, H, W) int32
         labels.  Pads the height by 8 + 8, ImageNet-normalizes, averages
-        the logits with the horizontal-flip pass's, argmax, crops the pad."""
-        if x.dim() == 3:
-            x = x[None]
-        if x.shape[-1] == 1:
-            x = x.repeat_interleave(3, dim=-1)
-        h = pad_height(x, 8, 8).float().permute(0, 3, 1, 2)
-        h = imagenet_normalize(h).to(compute_dtype).contiguous(memory_format=torch.channels_last)
-        o = EfficientNet.logits(params, h)
-        o2 = EfficientNet.logits(params, torch.flip(h, dims=(3,)))
-        o = (o + torch.flip(o2, dims=(3,))) / 2.0
-        labels = torch.argmax(o, dim=1).to(torch.int32)
-        return labels[:, 8:-8, :]
+        the logits with the horizontal-flip pass's, argmax, crops the pad.
+        Under a profiler a span ``b7.apply``."""
+        with span("b7.apply"):
+            if x.dim() == 3:
+                x = x[None]
+            if x.shape[-1] == 1:
+                x = x.repeat_interleave(3, dim=-1)
+            h = pad_height(x, 8, 8).float().permute(0, 3, 1, 2)
+            h = imagenet_normalize(h).to(compute_dtype).contiguous(memory_format=torch.channels_last)
+            o = EfficientNet.logits(params, h)
+            o2 = EfficientNet.logits(params, torch.flip(h, dims=(3,)))
+            o = (o + torch.flip(o2, dims=(3,))) / 2.0
+            labels = torch.argmax(o, dim=1).to(torch.int32)
+            return labels[:, 8:-8, :]

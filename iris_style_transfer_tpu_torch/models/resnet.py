@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.image import imagenet_normalize
+from ..runtime.profiler import span
 from . import layers as L
 
 STAGES = [(64, 3, 1), (128, 4, 2), (256, 6, 2), (512, 3, 2)]
@@ -69,15 +70,17 @@ class ResNet50:
 
     @staticmethod
     def apply(params: dict, x: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
-        """Channel-last RGB images (B, H, W, 3) in [0,1] -> (B, 2048) float32."""
-        if x.dim() == 3:
-            x = x[None]
-        h = imagenet_normalize(x.float().permute(0, 3, 1, 2))
-        h = h.to(compute_dtype).contiguous(memory_format=torch.channels_last)
-        h = torch.relu(L.batchnorm(L.conv2d(h, params["conv1"], stride=2, padding=3), params["bn1"]))
-        h = F.pad(h, (1, 1, 1, 1), value=float("-inf"))
-        h = L.max_pool(h, 3, 2)
-        for si, (_, _, stride) in enumerate(STAGES, start=1):
-            for b, bp in enumerate(params[f"layer{si}"]):
-                h = _bottleneck(bp, h, stride if b == 0 else 1)
-        return h.mean(dim=(2, 3)).float()
+        """Channel-last RGB images (B, H, W, 3) in [0,1] -> (B, 2048) float32.
+        Under a profiler a span ``resnet50.apply``."""
+        with span("resnet50.apply"):
+            if x.dim() == 3:
+                x = x[None]
+            h = imagenet_normalize(x.float().permute(0, 3, 1, 2))
+            h = h.to(compute_dtype).contiguous(memory_format=torch.channels_last)
+            h = torch.relu(L.batchnorm(L.conv2d(h, params["conv1"], stride=2, padding=3), params["bn1"]))
+            h = F.pad(h, (1, 1, 1, 1), value=float("-inf"))
+            h = L.max_pool(h, 3, 2)
+            for si, (_, _, stride) in enumerate(STAGES, start=1):
+                for b, bp in enumerate(params[f"layer{si}"]):
+                    h = _bottleneck(bp, h, stride if b == 0 else 1)
+            return h.mean(dim=(2, 3)).float()

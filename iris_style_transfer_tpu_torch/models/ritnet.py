@@ -17,6 +17,7 @@ import torch
 
 from ..ops.clahe import clahe
 from ..ops.image import gamma_lut
+from ..runtime.profiler import span
 from . import layers as L
 from .port import from_jax, load_npz
 from .pretrained import WEIGHTS_DIR
@@ -107,7 +108,9 @@ class RITnet:
 
     @staticmethod
     def apply(params: dict, x: torch.Tensor, preprocess: bool = True) -> torch.Tensor:
-        """(B, H, W, 1) frames in [0,1] -> (B, H, W) int64 class labels."""
-        if preprocess:
-            x = RITnet.transform(x)
-        return torch.argmax(RITnet.forward(params, x), dim=1)
+        """(B, H, W, 1) frames in [0,1] -> (B, H, W) int64 class labels.
+        Under a profiler a span ``ritnet.apply``."""
+        with span("ritnet.apply"):
+            if preprocess:
+                x = RITnet.transform(x)
+            return torch.argmax(RITnet.forward(params, x), dim=1)

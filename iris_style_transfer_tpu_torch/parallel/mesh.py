@@ -38,7 +38,6 @@ over the network between nodes itself.
 
 from __future__ import annotations
 
-import contextlib
 import datetime
 import os
 import tempfile
@@ -295,25 +294,21 @@ def gather_height(mesh: Mesh, t: torch.Tensor, dim: int = -2) -> torch.Tensor:
     return _gather(t, mesh.model_group, mesh.shape["model"], dim)
 
 
-def _span(name: str):
-    """A ``torch.profiler`` span named ``name`` while a profiler records,
-    else a no-op (no profiler op call on the hot path)."""
-    return torch.profiler.record_function(name) if torch.autograd._profiler_enabled() else contextlib.nullcontext()
-
-
 class _HaloRows(torch.autograd.Function):
     """(B, C, h, W) slab -> (B, C, h + 2, W): the row above from the model
     rank before, the row below from the one after, zeros at the image's
     top and bottom; one ``all_gather`` of every rank's first and last rows.
     The backward gathers the gradients of the lent rows the same way, and
     each rank adds what its neighbours computed for its own edge rows.
-    Under a profiler each direction is a span, ``halo_rows`` and
-    ``halo_rows_backward``."""
+    Under a profiler each direction is a span (``runtime/profiler.py``),
+    ``halo_rows`` and ``halo_rows_backward``."""
 
     @staticmethod
     def forward(ctx, x, group, j: int, m: int):
+        from ..runtime.profiler import span  # runtime imports this module
+
         ctx.group, ctx.j, ctx.m = group, j, m
-        with _span("halo_rows"):
+        with span("halo_rows"):
             parts = _edge_rows(x, group, m)
             b, c, h, w = x.shape
             out = _like(x, (b, c, h + 2, w))
@@ -324,8 +319,10 @@ class _HaloRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        from ..runtime.profiler import span
+
         j, m = ctx.j, ctx.m
-        with _span("halo_rows_backward"):
+        with span("halo_rows_backward"):
             parts = _edge_rows(g, ctx.group, m)  # the cotangents of the rows each rank borrowed
             gx = _like(g, (g.shape[0], g.shape[1], g.shape[2] - 2, g.shape[3]))
             gx.copy_(g[:, :, 1:-1])

@@ -26,11 +26,11 @@ Needs a CUDA device; exits with an error without one.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
 import sys
-import time
 
 HBM_BYTES_PER_S = 3.35e12  # NVIDIA's H100 SXM data sheet
 FRAMES, H, W = 64, 400, 640
@@ -62,26 +62,41 @@ def _turns(fns: dict) -> dict:
     return {k: min(v) for k, v in t.items()}
 
 
-def _split(fn, tries: int = 4) -> dict:
+@functools.cache
+def _traced():
+    """``runtime/profiler.py:traced`` of the checkout holding this script,
+    loaded from its file, so that a ``--root`` without it (an earlier
+    commit) is timed by the same retries."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "runtime", "profiler.py")
+    spec = importlib.util.spec_from_file_location("_time_connected_profiler", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.traced
+
+
+def _device_events(ev) -> list:
+    return [e for e in ev if "cuda" in str(getattr(e, "device_type", "")).lower()
+            and getattr(e, "self_device_time_total", 0) > 0]
+
+
+def _split(fn) -> dict:
     """Device ms a call of each kernel ``fn`` launches, by kernel name: its
     mean time times its launches a call; a trace without device events is
-    taken again (the profiler drops events on the H100)."""
+    taken again (``traced``: the profiler drops events on the H100), and
+    none after every try gives an empty split."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(PROFILED):
-                fn()
-            torch.cuda.synchronize()
-        ev = [e for e in prof.key_averages() if "cuda" in str(getattr(e, "device_type", "")).lower()
-              and getattr(e, "self_device_time_total", 0) > 0]
-        if ev:
-            return {e.key: e.self_device_time_total / e.count * max(1, round(e.count / PROFILED)) / 1e3 for e in ev}
-        time.sleep(1.0)
-    return {}
+    try:
+        ev, _ = _traced()(lambda: [fn() for _ in range(PROFILED)], lambda ev: bool(_device_events(ev)),
+                          "the kernels of a labelling call", cpu=False)
+    except AssertionError:
+        return {}
+    return {e.key: e.self_device_time_total / e.count * max(1, round(e.count / PROFILED)) / 1e3
+            for e in _device_events(ev)}
 
 
 def main(argv=None) -> int:

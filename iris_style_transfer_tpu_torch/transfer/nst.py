@@ -34,6 +34,9 @@ statistics, which the model ranks of one data block all compute, so they
 add over the data group.  The L-BFGS reduces its inner products over every
 rank that holds a piece of the image (the world group).  The loss
 histories are reduced once, after the loop.
+
+Under a profiler each closure's loss and gradient is a span ``nst.grad``
+and each L-BFGS step one ``lbfgs.step`` (``runtime/profiler.py``).
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from ..ops.losses import (
     style_stats_split,
 )
 from ..parallel.mesh import Mesh, all_reduce, gather_batch, gather_height, spatial_sharding, sum_over_group
+from ..runtime.profiler import span
 from .lbfgs import lbfgs_init, lbfgs_step
 
 ADAM_B1, ADAM_B2 = 0.9, 0.999
@@ -169,7 +173,7 @@ def make_nst_fn(
 
         for i in range(epochs):
             x = x.clamp(0.0, 1.0)  # the closure's clamp (pipelines.py:81-82)
-            with torch.enable_grad():
+            with span("nst.grad"), torch.enable_grad():
                 x.requires_grad_(True)
                 loss, c_loss, s_loss = loss_fn(x)
                 (g,) = torch.autograd.grad(loss, x)
@@ -177,7 +181,8 @@ def make_nst_fn(
             c_hist[i] = c_loss
             s_hist[i] = s_loss
             if optimizer == "lbfgs":
-                update, state = lbfgs_step(state, g, lr, group=group)
+                with span("lbfgs.step"):
+                    update, state = lbfgs_step(state, g, lr, group=group)
             else:
                 t = i + 1.0
                 m = ADAM_B1 * m + (1 - ADAM_B1) * g

@@ -28,11 +28,17 @@ the composite run on the rank's data block, repeated over its model group;
 the NST runs on the rank's slab of H rows of that block (its L-BFGS
 reduced over every rank), and one gather over the model group restores
 the whole stylized irises.  ``(224 / 8) % m`` must be 0, as in JAX.
+
+Each sweep is a run of ``runtime/profiler.py``'s spans, which cost one
+check each while no profiler records: ``ist.load``, ``ist.pre``,
+``ist.nst``, ``ist.nst_sync``, ``ist.post``, ``ist.seg``, ``ist.save``
+and ``ist.metric_job`` a batch, then ``ist.drain`` and ``ist.aggregate``.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -66,6 +72,7 @@ from ..runtime.config import (
     run_on_ranks,
     spawns_ranks,
 )
+from ..runtime.profiler import at_batch, job, new_run, span
 from ..transfer.nst import cached_nst_program
 from ..utils import prepare_dir, save_png, seed as seed_all, sweep_done, write_sweep_marker
 
@@ -199,106 +206,124 @@ def iris_style_transfer_openeds2019(
     pending: list[tuple[dict, list]] = []
     pipe_times: list[float] = []
 
-    batches = batch_iterator(
+    new_run()
+    batches = iter(batch_iterator(
         (dataset.c_imgs, dataset.c_labels, dataset.c_masks_iris, dataset.c_iris_bbs,
          dataset.c_masks_gt, dataset.s_irises, dataset.s_labels),
         cfg.bs,
         pad_final=True,
-    )
+    ))
     try:
-        for batch_id, batch in enumerate(batches):
-            t_batch = time.perf_counter()
-            c_labels, s_labels = batch[1], batch[6]
-            valid = batch[7] if len(batch) > 7 else np.ones(len(c_labels), bool)
-            # this rank's block; the labels and valid rows stay global on the host
-            c_imgs, masks, bboxes, seg_gt, s_irises = shard_batch(mesh, (batch[0], *batch[2:6]))
-            irises, p1, p2 = pre_fn(vgg_params, c1_params, c2_params, c_imgs, masks, bboxes)
-            yy = np.asarray(c_labels)[valid]
-            ys = np.asarray(s_labels)[valid]
-            futs = [metric_pool.submit(
-                _batch_metric_job, metric_prefix, num_class, "pre", yy, ys, valid,
-                gather_batch(mesh, p1), gather_batch(mesh, p2),
-            )]
-            agg["c_labels"].append(yy)
-            agg["s_labels"].append(ys)
+        for batch_id in itertools.count():
+            at_batch(batch_id)
+            with span("ist.load"):
+                batch = next(batches, None)
+                t_batch = time.perf_counter()
+                if batch is not None:
+                    # this rank's block; the labels and valid rows stay global on the host
+                    c_imgs, masks, bboxes, seg_gt, s_irises = shard_batch(mesh, (batch[0], *batch[2:6]))
+                    c_labels, s_labels = batch[1], batch[6]
+                    valid = batch[7] if len(batch) > 7 else np.ones(len(c_labels), bool)
+            if batch is None:
+                break
+            with span("ist.pre"):  # the program, and its metrics handed to the worker
+                irises, p1, p2 = pre_fn(vgg_params, c1_params, c2_params, c_imgs, masks, bboxes)
+                yy = np.asarray(c_labels)[valid]
+                ys = np.asarray(s_labels)[valid]
+                futs = [metric_pool.submit(
+                    job("ist.metric_job", _batch_metric_job), metric_prefix, num_class, "pre", yy, ys, valid,
+                    gather_batch(mesh, p1), gather_batch(mesh, p2),
+                )]
+                agg["c_labels"].append(yy)
+                agg["s_labels"].append(ys)
+                s_rgb = gray_to_rgb(to_unit_float(s_irises)).permute(0, 3, 1, 2)
+                rows = height_sharding(mesh, CROP[0])  # this rank's slab of the irises' H
 
             if batch_id % save_period == 0 and mesh.is_main:
-                save_png(f"{save_dir}batch_{batch_id}_raw.png", batch[0][0].cpu().numpy())
-                save_png(f"{save_dir}batch_{batch_id}_sty.png", batch[5][0].cpu().numpy())
+                with span("ist.save"):
+                    save_png(f"{save_dir}batch_{batch_id}_raw.png", batch[0][0].cpu().numpy())
+                    save_png(f"{save_dir}batch_{batch_id}_sty.png", batch[5][0].cpu().numpy())
 
-            s_rgb = gray_to_rgb(to_unit_float(s_irises)).permute(0, 3, 1, 2)
-            rows = height_sharding(mesh, CROP[0])  # this rank's slab of the irises' H
             with timer:
-                result = nst_fn(vgg_params, irises.permute(0, 3, 1, 2)[:, :, rows], s_rgb[:, :, rows])
-                stylized = gather_height(mesh, result.x)
-                _sync(device)
-            futs.append(metric_pool.submit(
-                _loss_job, metric_prefix, result.c_loss_hist, result.s_loss_hist,
-                c_loss_weight, s_loss_weight,
-            ))
+                with span("ist.nst"):
+                    result = nst_fn(vgg_params, irises.permute(0, 3, 1, 2)[:, :, rows], s_rgb[:, :, rows])
+                    stylized = gather_height(mesh, result.x)
+                with span("ist.nst_sync"):
+                    _sync(device)
 
-            new_frames, p1, p2 = post_fn(vgg_params, c1_params, c2_params, c_imgs, stylized, masks, bboxes)
-            seg_parts = post_seg(ritnet_params, new_frames, seg_gt)
-            if mesh.batch_shards > 1:  # (4, B / n) per rank -> (4, B)
-                seg_parts = [gather_batch(mesh, torch.cat(seg_parts, dim=1).t().contiguous()).t()]
-            futs.append(metric_pool.submit(
-                _batch_metric_job, metric_prefix, num_class, "post", yy, ys, valid,
-                gather_batch(mesh, p1), gather_batch(mesh, p2),
-            ))
-            futs.append(metric_pool.submit(_seg_iou_job, metric_prefix, seg_parts, valid))
+            with span("ist.post"):  # the NST's losses handed to the worker, then the program
+                futs.append(metric_pool.submit(
+                    job("ist.metric_job", _loss_job), metric_prefix, result.c_loss_hist, result.s_loss_hist,
+                    c_loss_weight, s_loss_weight,
+                ))
+                new_frames, p1, p2 = post_fn(vgg_params, c1_params, c2_params, c_imgs, stylized, masks, bboxes)
+            with span("ist.seg"):  # the program, then the post metrics and IoUs handed to the worker
+                seg_parts = post_seg(ritnet_params, new_frames, seg_gt)
+                if mesh.batch_shards > 1:  # (4, B / n) per rank -> (4, B)
+                    seg_parts = [gather_batch(mesh, torch.cat(seg_parts, dim=1).t().contiguous()).t()]
+                futs.append(metric_pool.submit(
+                    job("ist.metric_job", _batch_metric_job), metric_prefix, num_class, "post", yy, ys, valid,
+                    gather_batch(mesh, p1), gather_batch(mesh, p2),
+                ))
+                futs.append(metric_pool.submit(job("ist.metric_job", _seg_iou_job), metric_prefix, seg_parts,
+                                               valid))
 
             if batch_id % save_period == 0 and mesh.is_main:  # rank 0's block starts the batch
-                save_png(f"{save_dir}batch_{batch_id}_new.png", new_frames[0].cpu().numpy())
+                with span("ist.save"):
+                    save_png(f"{save_dir}batch_{batch_id}_new.png", new_frames[0].cpu().numpy())
             pending.append(({}, futs))
             pipe_times.append(time.perf_counter() - t_batch)
 
         # drain in batch order; the drain's wall time counts against the
         # end-to-end throughput below
-        t_drain0 = time.perf_counter()
-        for blog, futs in pending:
-            for f in futs:
-                log_upd, agg_upd = f.result()
-                blog.update(log_upd)
-                for k, v in agg_upd.items():
-                    agg[k].append(v)
-            logger.log(blog)
-        t_drain = time.perf_counter() - t_drain0
+        at_batch(None)
+        with span("ist.drain"):
+            t_drain0 = time.perf_counter()
+            for blog, futs in pending:
+                for f in futs:
+                    log_upd, agg_upd = f.result()
+                    blog.update(log_upd)
+                    for k, v in agg_upd.items():
+                        agg[k].append(v)
+                logger.log(blog)
+            t_drain = time.perf_counter() - t_drain0
     finally:
         metric_pool.shutdown(wait=True)
 
-    log = {}
-    ious = np.concatenate(agg["ious"], axis=1)
-    mious = np.concatenate(agg["mious"])
-    if mesh.is_main:
+    with span("ist.aggregate"):
+        log = {}
+        ious = np.concatenate(agg["ious"], axis=1)
+        mious = np.concatenate(agg["mious"])
+        if mesh.is_main:
+            for c in range(4):
+                np.save(f"{save_dir}ious{c}_post.npy", ious[c])
+            np.save(f"{save_dir}mious_post.npy", mious)
         for c in range(4):
-            np.save(f"{save_dir}ious{c}_post.npy", ious[c])
-        np.save(f"{save_dir}mious_post.npy", mious)
-    for c in range(4):
-        log[f"{metric_prefix}post/mean_iou{c}"] = float(np.nanmean(ious[c]))
-    log[f"{metric_prefix}post/mean_miou"] = float(np.nanmean(mious))
+            log[f"{metric_prefix}post/mean_iou{c}"] = float(np.nanmean(ious[c]))
+        log[f"{metric_prefix}post/mean_miou"] = float(np.nanmean(mious))
 
-    c_loss = float(np.nanmean(agg["c_loss"]))
-    s_loss = float(np.nanmean(agg["s_loss"]))
-    log[f"{metric_prefix}/c_loss"] = c_loss
-    log[f"{metric_prefix}/s_loss"] = s_loss
-    log[f"{metric_prefix}/cs_loss"] = c_loss * c_loss_weight + s_loss * s_loss_weight
+        c_loss = float(np.nanmean(agg["c_loss"]))
+        s_loss = float(np.nanmean(agg["s_loss"]))
+        log[f"{metric_prefix}/c_loss"] = c_loss
+        log[f"{metric_prefix}/s_loss"] = s_loss
+        log[f"{metric_prefix}/cs_loss"] = c_loss * c_loss_weight + s_loss * s_loss_weight
 
-    yy = np.concatenate(agg["c_labels"])
-    ys = np.concatenate(agg["s_labels"])
-    for phase in ("pre", "post"):
-        for nm in ("1", "2"):
-            pred = torch.cat(agg[f"{phase}{nm}"])
-            m = _cpu_metrics(yy, pred, num_class)
-            log.update({f"{metric_prefix}{phase}/c{nm}/{k}": v for k, v in m.items()})
-            m = _cpu_metrics(ys, pred, num_class)
-            log.update({f"{metric_prefix}{phase}/c{nm}/mis/{k}": v for k, v in m.items()})
-    log[f"{metric_prefix}nst_batches_per_sec"] = timer.per_sec()
-    log[f"{metric_prefix}stylized_images_per_min"] = timer.per_sec(cfg.bs) * 60
-    # end to end: the first (warm-up) batch is excluded when there are more
-    pipe = pipe_times[1:] if len(pipe_times) > 1 else pipe_times
-    if pipe:
-        log[f"{metric_prefix}pipeline_images_per_min"] = cfg.bs * len(pipe) / (sum(pipe) + t_drain) * 60
-    logger.log(log)
+        yy = np.concatenate(agg["c_labels"])
+        ys = np.concatenate(agg["s_labels"])
+        for phase in ("pre", "post"):
+            for nm in ("1", "2"):
+                pred = torch.cat(agg[f"{phase}{nm}"])
+                m = _cpu_metrics(yy, pred, num_class)
+                log.update({f"{metric_prefix}{phase}/c{nm}/{k}": v for k, v in m.items()})
+                m = _cpu_metrics(ys, pred, num_class)
+                log.update({f"{metric_prefix}{phase}/c{nm}/mis/{k}": v for k, v in m.items()})
+        log[f"{metric_prefix}nst_batches_per_sec"] = timer.per_sec()
+        log[f"{metric_prefix}stylized_images_per_min"] = timer.per_sec(cfg.bs) * 60
+        # end to end: the first (warm-up) batch is excluded when there are more
+        pipe = pipe_times[1:] if len(pipe_times) > 1 else pipe_times
+        if pipe:
+            log[f"{metric_prefix}pipeline_images_per_min"] = cfg.bs * len(pipe) / (sum(pipe) + t_drain) * 60
+        logger.log(log)
     return log
 
 

@@ -34,11 +34,16 @@ block, repeated over its model group; the NST runs on the rank's slab of
 H rows of that block (its L-BFGS reduced over every rank), and one gather
 over the model group restores the whole stylized irises.  ``(224 / 8) %
 m`` must be 0, as in JAX.
+
+Each sweep is a run of ``runtime/profiler.py``'s spans, as in the 2019
+main, with ``ist.stage`` (the pre program's quantize and host-to-card
+copy) inside ``ist.pre`` and no ``ist.seg``.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -72,6 +77,7 @@ from ..runtime.config import (
     run_on_ranks,
     spawns_ranks,
 )
+from ..runtime.profiler import at_batch, job, new_run, span
 from ..transfer.nst import cached_nst_program
 from ..utils import prepare_dir, read_image_gray, save_png, seed as seed_all, sweep_done, write_sweep_marker
 from .ist_openeds2019 import CROP, _sync
@@ -102,9 +108,10 @@ def make_programs(glint_threshold: float, compute_dtype, device, mesh: Mesh | No
         """c_imgs: host frames (B, H, W, 1).  They go to the device as
         uint8, and the staged frames come back as the last output, so the
         post program composites into them without a second copy."""
-        if mesh is not None:
-            c_imgs = shard_batch(mesh, np.asarray(c_imgs))
-        staged = torch.from_numpy(quantize_u8(np.asarray(c_imgs))).to(device)
+        with span("ist.stage"):
+            if mesh is not None:
+                c_imgs = shard_batch(mesh, np.asarray(c_imgs))
+            staged = torch.from_numpy(quantize_u8(np.asarray(c_imgs))).to(device)
         outs = []
         for i in range(0, staged.shape[0], SEG_CHUNK):
             frames = to_unit_float(staged[i : i + SEG_CHUNK])
@@ -194,79 +201,95 @@ def iris_style_transfer_openeds2020(
     pending: list[tuple[dict, list]] = []
     pipe_times: list[float] = []
 
-    batches = images() if callable(images) else batch_iterator((images, labels), cfg.bs, pad_final=True)
+    new_run()
+    batches = iter(images() if callable(images) else batch_iterator((images, labels), cfg.bs, pad_final=True))
     try:
-        for batch_id, batch in enumerate(batches):
-            t_batch = time.perf_counter()
-            c_imgs, labs = batch[0], batch[1]
-            valid = batch[2] if len(batch) > 2 else np.ones(len(labs), bool)
+        for batch_id in itertools.count():
+            at_batch(batch_id)
+            with span("ist.load"):
+                batch = next(batches, None)
+                t_batch = time.perf_counter()
+                if batch is not None:
+                    c_imgs, labs = batch[0], batch[1]
+                    valid = batch[2] if len(batch) > 2 else np.ones(len(labs), bool)
+            if batch is None:
+                break
             if batch_id % save_period == 0 and mesh.is_main:
-                save_png(f"{save_dir}batch_{batch_id}_raw.png", c_imgs[0])
+                with span("ist.save"):
+                    save_png(f"{save_dir}batch_{batch_id}_raw.png", c_imgs[0])
 
-            p1, p2, irises, masks, bboxes, frames_dev = pre_fn(eff_params, g1_params, g2_params, c_imgs)
-            # metrics over valid rows only: padded rows repeat the last frame
-            labs_v = np.asarray(labs)[valid]
-            futs = [metric_pool.submit(_gaze_metric_job, metric_prefix, "pre", gather_batch(mesh, p1),
-                                       gather_batch(mesh, p2), labs_v, valid)]
-            agg["labels"].append(labs_v)
+            with span("ist.pre"):  # the program, and its metrics handed to the worker
+                p1, p2, irises, masks, bboxes, frames_dev = pre_fn(eff_params, g1_params, g2_params, c_imgs)
+                # metrics over valid rows only: padded rows repeat the last frame
+                labs_v = np.asarray(labs)[valid]
+                futs = [metric_pool.submit(job("ist.metric_job", _gaze_metric_job), metric_prefix, "pre",
+                                           gather_batch(mesh, p1), gather_batch(mesh, p2), labs_v, valid)]
+                agg["labels"].append(labs_v)
+                rows = height_sharding(mesh, CROP[0])  # this rank's slab of the irises' H
 
-            rows = height_sharding(mesh, CROP[0])  # this rank's slab of the irises' H
             with timer:
-                s_batch = s_iris_rgb[:, rows].expand(irises.shape[0], -1, -1, -1)
-                result = nst_fn(vgg_params, irises.permute(0, 3, 1, 2)[:, :, rows], s_batch)
-                stylized = gather_height(mesh, result.x)
-                _sync(device)
-            futs.append(metric_pool.submit(
-                _loss_job, metric_prefix, result.c_loss_hist, result.s_loss_hist,
-                c_loss_weight, s_loss_weight,
-            ))
+                with span("ist.nst"):
+                    s_batch = s_iris_rgb[:, rows].expand(irises.shape[0], -1, -1, -1)
+                    result = nst_fn(vgg_params, irises.permute(0, 3, 1, 2)[:, :, rows], s_batch)
+                    stylized = gather_height(mesh, result.x)
+                with span("ist.nst_sync"):
+                    _sync(device)
 
-            new_frames, p1, p2 = post_fn(eff_params, g1_params, g2_params, frames_dev, stylized, masks, bboxes)
-            futs.append(metric_pool.submit(_gaze_metric_job, metric_prefix, "post", gather_batch(mesh, p1),
-                                           gather_batch(mesh, p2), labs_v, valid))
+            with span("ist.post"):  # the NST's losses to the worker, the program, its metrics to the worker
+                futs.append(metric_pool.submit(
+                    job("ist.metric_job", _loss_job), metric_prefix, result.c_loss_hist, result.s_loss_hist,
+                    c_loss_weight, s_loss_weight,
+                ))
+                new_frames, p1, p2 = post_fn(eff_params, g1_params, g2_params, frames_dev, stylized, masks, bboxes)
+                futs.append(metric_pool.submit(job("ist.metric_job", _gaze_metric_job), metric_prefix, "post",
+                                               gather_batch(mesh, p1), gather_batch(mesh, p2), labs_v, valid))
 
             if batch_id % save_period == 0 and mesh.is_main:  # rank 0's block starts the batch
-                save_png(f"{save_dir}batch_{batch_id}_new.png", new_frames[0].cpu().numpy())
+                with span("ist.save"):
+                    save_png(f"{save_dir}batch_{batch_id}_new.png", new_frames[0].cpu().numpy())
             pending.append(({}, futs))
             pipe_times.append(time.perf_counter() - t_batch)
 
         # drain in batch order; the drain's wall time counts against the
         # end-to-end throughput below
-        t_drain0 = time.perf_counter()
-        for blog, futs in pending:
-            for f in futs:
-                log_upd, agg_upd = f.result()
-                blog.update(log_upd)
-                for k, v in agg_upd.items():
-                    agg[k].append(v)
-            logger.log(blog)
-        t_drain = time.perf_counter() - t_drain0
+        at_batch(None)
+        with span("ist.drain"):
+            t_drain0 = time.perf_counter()
+            for blog, futs in pending:
+                for f in futs:
+                    log_upd, agg_upd = f.result()
+                    blog.update(log_upd)
+                    for k, v in agg_upd.items():
+                        agg[k].append(v)
+                logger.log(blog)
+            t_drain = time.perf_counter() - t_drain0
     finally:
         metric_pool.shutdown(wait=True)
 
-    log = {}
-    labels_all = np.concatenate(agg["labels"])
-    if mesh.is_main:
-        np.save(f"{save_dir}labels.npy", labels_all)
-    for phase in ("pre", "post"):
-        for i in ("1", "2"):
-            preds = np.concatenate(agg[f"{phase}{i}"])
-            if mesh.is_main:
-                np.save(f"{save_dir}preds{i}_{phase}.npy", preds)
-            rad, deg = angular_distance(torch.from_numpy(preds), torch.from_numpy(labels_all))
-            log[f"{metric_prefix}/{phase}/radian_distance{i}"] = float(rad.mean())
-            log[f"{metric_prefix}/{phase}/degree_distance{i}"] = float(deg.mean())
-    c_loss = float(np.nanmean(agg["c_loss"]))
-    s_loss = float(np.nanmean(agg["s_loss"]))
-    log[f"{metric_prefix}/c_loss"] = c_loss
-    log[f"{metric_prefix}/s_loss"] = s_loss
-    log[f"{metric_prefix}/cs_loss"] = c_loss * c_loss_weight + s_loss * s_loss_weight
-    log[f"{metric_prefix}/stylized_images_per_min"] = timer.per_sec(cfg.bs) * 60
-    # end to end: the first (warm-up) batch is excluded when there are more
-    pipe = pipe_times[1:] if len(pipe_times) > 1 else pipe_times
-    if pipe:
-        log[f"{metric_prefix}/pipeline_images_per_min"] = cfg.bs * len(pipe) / (sum(pipe) + t_drain) * 60
-    logger.log(log)
+    with span("ist.aggregate"):
+        log = {}
+        labels_all = np.concatenate(agg["labels"])
+        if mesh.is_main:
+            np.save(f"{save_dir}labels.npy", labels_all)
+        for phase in ("pre", "post"):
+            for i in ("1", "2"):
+                preds = np.concatenate(agg[f"{phase}{i}"])
+                if mesh.is_main:
+                    np.save(f"{save_dir}preds{i}_{phase}.npy", preds)
+                rad, deg = angular_distance(torch.from_numpy(preds), torch.from_numpy(labels_all))
+                log[f"{metric_prefix}/{phase}/radian_distance{i}"] = float(rad.mean())
+                log[f"{metric_prefix}/{phase}/degree_distance{i}"] = float(deg.mean())
+        c_loss = float(np.nanmean(agg["c_loss"]))
+        s_loss = float(np.nanmean(agg["s_loss"]))
+        log[f"{metric_prefix}/c_loss"] = c_loss
+        log[f"{metric_prefix}/s_loss"] = s_loss
+        log[f"{metric_prefix}/cs_loss"] = c_loss * c_loss_weight + s_loss * s_loss_weight
+        log[f"{metric_prefix}/stylized_images_per_min"] = timer.per_sec(cfg.bs) * 60
+        # end to end: the first (warm-up) batch is excluded when there are more
+        pipe = pipe_times[1:] if len(pipe_times) > 1 else pipe_times
+        if pipe:
+            log[f"{metric_prefix}/pipeline_images_per_min"] = cfg.bs * len(pipe) / (sum(pipe) + t_drain) * 60
+        logger.log(log)
     return log
 
 
