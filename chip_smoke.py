@@ -13,7 +13,11 @@ exit:
   3. kernels — each kernel against its plain torch version on the card at
                the shapes the main paths give it and at more, with f32 and
                odd cases: relu_pool and relu_stats bit-exact (y, g) with
-               planted ties, zeros and negatives, relu_stats' sums and the
+               planted ties, zeros and negatives, relu_stats' sums, the
+               BN loss's style sums (``ops/style_sums.py``, both layouts,
+               g bit-exact, sums within 1e-6 of sum|terms| of float64, each
+               2019 tap timed against the eager chain it replaced, the
+               launches of one classic NST call counted) and the
                Gram within their stated tolerances (``ops/relu_stats.py``,
                ``ops/blockwise_gram.py``; the Gram at the 2019 relu1_1 and
                the 512-px bs-4 tap shapes, against a bmm with TF32 off),
@@ -245,10 +249,10 @@ def phase_device():
 
 def phase_build():
     from iris_style_transfer_tpu_torch.ops import (blockwise_gram, connected, conv1, cuda_build, depthwise, relu_pool,
-                                                   relu_stats)
+                                                   relu_stats, style_sums)
 
     t0 = time.perf_counter()
-    mods = (relu_pool, depthwise, relu_stats, blockwise_gram, conv1, connected)
+    mods = (relu_pool, depthwise, relu_stats, style_sums, blockwise_gram, conv1, connected)
     with ThreadPoolExecutor(max_workers=len(mods)) as pool:  # one nvcc per source, together
         for f in [pool.submit(m._library) for m in mods]:
             f.result()
@@ -309,13 +313,14 @@ def _time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _turns(fns: dict, iters: int = 20) -> dict:
-    """Each callable timed twice, in turns (a, b, b, a); the lower time."""
+def _turns(fns: dict, iters: int = 20, timer=None) -> dict:
+    """Each callable timed twice, in turns (a, b, b, a), by ``timer``
+    (default :func:`_time_ms`); the lower time."""
     names = list(fns)
     t = {k: [] for k in names}
     for order in (names, names[::-1]):
         for k in order:
-            t[k].append(_time_ms(fns[k], iters))
+            t[k].append((timer or _time_ms)(fns[k], iters))
     return {k: min(v) for k, v in t.items()}
 
 
@@ -844,6 +849,125 @@ def phase_kernels_relu_stats(card: str):
     _log("kernels", f"one VGG19 fwd+bwd with stats taps at (64,3,224,224) bf16: {counted} launches counted, "
          f"profiler traced {seen}; its relu_stats events {keys}")
     return {"err_fwd": worst["fwd"], "err_bwd": worst["bwd"], **ms}
+
+
+def _style_tap(shape, dtype, layout, gen):
+    """A relu-like tap on the card, in ``layout``, with planted zeros and
+    large values, and the two cotangents."""
+    import torch
+
+    b, c, h, w = shape
+    x = torch.relu(torch.randn((b, h, w, c), generator=gen, device="cuda")) * 3.0
+    x[:, 0:2, :, :] = 0.0
+    x[:, -1, -1, :] = 6.0e4
+    x = x.to(dtype).permute(0, 3, 1, 2)
+    x = x.contiguous() if layout == "nchw" else x.contiguous(memory_format=torch.channels_last)
+    g1 = torch.randn((b, c), generator=gen, device="cuda")
+    g2 = torch.randn((b, c), generator=gen, device="cuda") * 1e-3
+    return x, g1, g2
+
+
+def phase_kernels_style_sums(card: str):
+    """The BN style loss's sums (``ops/style_sums.py``) against float64 and
+    the plain versions at the 2019 tap shapes in both layouts and more:
+    sums within 1e-6 of sum|terms| and bit-equal over two runs, g bit-exact;
+    the taps' layout in a VGG19 forward; each tap timed, kernel against the
+    plain version and the eager autograd chain it replaced, in turns; the
+    launches of one NST call at the 2019 main's settings, and the kernels
+    in its trace."""
+    import torch
+    from iris_style_transfer_tpu_torch.models import VGG19
+    from iris_style_transfer_tpu_torch.ops import style_sums as ss
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    cases = [(sh, torch.bfloat16, lay) for sh in TAPS_2019 for lay in ("nhwc", "nchw")]
+    cases += [((128, 64, 224, 224), torch.bfloat16, "nhwc"), ((8, 64, 56, 56), torch.float32, "nhwc"),
+              ((8, 512, 28, 28), torch.float32, "nchw"), ((3, 5, 7, 9), torch.bfloat16, "nhwc"),
+              ((3, 5, 7, 9), torch.float32, "nchw"), ((1, 40, 15, 17), torch.bfloat16, "nchw")]
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for shape, dtype, layout in cases:
+        x, g1, g2 = _style_tap(shape, dtype, layout, gen)
+        s1, s2 = ss._kernel_fwd(x)
+        r1, r2 = ss._kernel_fwd(x)
+        g = ss._kernel_bwd(x, g1, g2)
+        g_p = ss.style_sums_bwd_plain(x, g1, g2)
+        torch.cuda.synchronize()
+        ok1, e1 = ss.sums_within_tolerance(s1, x, square=False)
+        ok2, e2 = ss.sums_within_tolerance(s2, x, square=True)
+        repeat = torch.equal(s1, r1) and torch.equal(s2, r2)
+        if not (ok1 and ok2 and repeat and torch.equal(g, g_p)):
+            raise AssertionError(f"style_sums kernels at {shape} {dtype} {layout}: s1 {e1:.3g}, s2 {e2:.3g} of "
+                                 f"sum|terms|, repeat {repeat}, g equal {torch.equal(g, g_p)} (max err "
+                                 f"{(g.float() - g_p.float()).abs().max().item():.3g})")
+        worst["fwd"] = max(worst["fwd"], e1, e2)
+        _log("kernels", f"style_sums {shape} {str(dtype)[6:]} {layout} ({ss.plan(shape, dtype, layout)}): s1 "
+             f"{e1:.3g}, s2 {e2:.3g} of sum|terms| off float64, bit-equal over two runs; g bit-exact vs plain")
+        del x, g1, g2, s1, s2, r1, r2, g, g_p
+
+    # the layout each tap reaches the loss in
+    params = VGG19.cast(VGG19.init(torch.Generator().manual_seed(SEED), device="cuda"), torch.bfloat16)
+    img = torch.rand((64, 3, 224, 224), generator=gen, device="cuda")
+    with torch.no_grad():
+        _, _, taps = VGG19.apply(params, img, compute_dtype=torch.bfloat16, truncate=True)
+    layouts = [ss._layout(t) for t in taps]
+    _log("kernels", f"the 2019 style taps relu1_1..relu4_1 at (64,3,224,224) bf16 reach style_stats as {layouts}")
+    del taps
+
+    def chain(x, g1, g2):  # the eager float32 chain of the classic path before the kernels, with autograd
+        leaf = x.detach().requires_grad_(True)
+        f = leaf.float()
+        a, b = f.sum(dim=(-2, -1)), (f * f).sum(dim=(-2, -1))
+        return torch.autograd.grad((a * g1).sum() + (b * g2).sum(), leaf)
+
+    def pair(x, g1, g2):
+        leaf = x.detach().requires_grad_(True)
+        a, b = ss.style_sums(leaf)
+        return torch.autograd.grad((a * g1).sum() + (b * g2).sum(), leaf)
+
+    times = {}
+    for shape, layout in zip(TAPS_2019, layouts):
+        x, g1, g2 = _style_tap(shape, torch.bfloat16, layout, gen)
+        # queued behind a sleep, so the host's launch time is hidden as in the NST loop
+        ms = _turns({"fwd_plain": lambda: ss.style_sums_fwd_plain(x), "fwd": lambda: ss._kernel_fwd(x),
+                     "bwd_plain": lambda: ss.style_sums_bwd_plain(x, g1, g2), "bwd": lambda: ss._kernel_bwd(x, g1, g2),
+                     "chain": lambda: chain(x, g1, g2), "pair": lambda: pair(x, g1, g2)}, timer=_queued_ms)
+        ms["bound_fwd"] = _bound(_nbytes(x, g1, g2))  # the tap read; s1 and s2 written
+        ms["bound_bwd"] = _bound(_nbytes(x, g1, g2, x))  # the tap, g1 and g2 read; g written
+        times[shape] = ms
+        _log("kernels", f"style_sums {shape} bf16 {layout} ms/call on {card}: fwd {ms['fwd']:.4f} (plain "
+             f"{ms['fwd_plain']:.4f}, bound {ms['bound_fwd'][0]:.4f}, {100 * ms['bound_fwd'][0] / ms['fwd']:.1f}%), "
+             f"bwd {ms['bwd']:.4f} (plain {ms['bwd_plain']:.4f}, bound {ms['bound_bwd'][0]:.4f}, "
+             f"{100 * ms['bound_bwd'][0] / ms['bwd']:.1f}%); fwd+bwd through autograd {ms['pair']:.4f}, "
+             f"the eager chain {ms['chain']:.4f}")
+        del x, g1, g2
+    _log("kernels", f"style_sums over the four taps a closure: fwd+bwd through autograd "
+         f"{sum(t['pair'] for t in times.values()):.4f} ms, the eager chain {sum(t['chain'] for t in times.values()):.4f}"
+         f" ms, bound {sum(t['bound_fwd'][0] + t['bound_bwd'][0] for t in times.values()):.4f} ms")
+
+    # one NST call at the 2019 main's settings launches them, and its trace holds them
+    from iris_style_transfer_tpu_torch.transfer.nst import make_nst_fn
+
+    c = torch.rand((64, 3, 224, 224), generator=gen, device="cuda")
+    kw = dict(compute_dtype=torch.bfloat16, lbfgs_dtype=torch.bfloat16, history_size=10)
+    make_nst_fn(epochs=1, **kw)(params, c, img)
+    torch.cuda.synchronize()
+    before = dict(ss.LAUNCHES)
+    make_nst_fn(epochs=MAIN_CLOSURES, **kw)(params, c, img)
+    counted = {k: ss.LAUNCHES[k] - before[k] for k in before}
+    want = {"style_sums_fwd": 4 * (MAIN_CLOSURES + 1), "style_sums_bwd": 4 * MAIN_CLOSURES}
+    if counted != want:
+        raise AssertionError(f"one NST call of {MAIN_CLOSURES} closures launched {counted}; {want} expected")
+    names = ("style_sums_nhwc_kernel", "style_sums_grad_nhwc_kernel", "style_sums_reduce_kernel")
+    fn = make_nst_fn(epochs=2, **kw)
+    ev, _ = traced(lambda: fn(params, c, img), lambda ev: all(any(k in e.key for e in ev) for k in names),
+                   f"{', '.join(names)} in a 2-closure NST call", cpu=False)
+    eager = {e.key[:60]: e.count for e in _device_events(ev) if "reduce_kernel" in e.key and "style" not in e.key}
+    _log("kernels", f"one NST call at (64,3,224,224) bf16, {MAIN_CLOSURES} closures: {counted} launches counted "
+         f"({want} expected); a traced 2-closure call holds {names}; PyTorch reduce kernels left in it: {eager}")
+    t = times[TAPS_2019[0]]
+    return {"err_fwd": worst["fwd"], "err_bwd": 0.0, "fwd": t["fwd"], "fwd_plain": t["fwd_plain"],
+            "bwd": t["bwd"], "bwd_plain": t["bwd_plain"], "bound_fwd": t["bound_fwd"], "bound_bwd": t["bound_bwd"],
+            "layouts": layouts}
 
 
 def phase_kernels_gram(card: str):
@@ -1414,10 +1538,19 @@ def phase_main(card: str, stats_taps: bool = False):
     from iris_style_transfer_tpu_torch.ops import conv1 as c1
     from iris_style_transfer_tpu_torch.ops import relu_pool as rp
     from iris_style_transfer_tpu_torch.ops import relu_stats as rs
+    from iris_style_transfer_tpu_torch.ops import style_sums as ss
     from iris_style_transfer_tpu_torch.workloads import ist_openeds2019 as wl
 
     argv = ["-bs", "64", "--nst_epochs", str(MAIN_CLOSURES)] + (["--stats_taps", "on"] if stats_taps else [])
+    before = dict(ss.LAUNCHES)
     results, launches, calls, _ = _run_main(wl, argv, (rp.LAUNCHES, rs.LAUNCHES, c1.LAUNCHES))
+    sums = {k: ss.LAUNCHES[k] - before[k] for k in before}
+    # per batch Classifier2's 4 taps in pre and in post; with classic taps the
+    # NST's 4 a closure forward and backward and 4 of the style target
+    nst = 0 if stats_taps else 4 * calls
+    want = {"style_sums_fwd": 8 * calls + nst * (MAIN_CLOSURES + 1), "style_sums_bwd": nst * MAIN_CLOSURES}
+    if sums != want:
+        raise AssertionError(f"the 2019 main (stats_taps {stats_taps}) launched style_sums {sums}; {want} expected")
     log = results[("test/", 1.0, MAIN_CLOSURES)]
     keys = ["test/post/mean_miou", "test/stylized_images_per_min", "test/pipeline_images_per_min"]
     keys += [f"test/{p}/c{n}/{m}" for p in ("pre", "post") for n in (1, 2) for m in ("accu", "loss", "f1")]
@@ -1430,8 +1563,8 @@ def phase_main(card: str, stats_taps: bool = False):
          f"on {card}: stylized_images_per_min {log['test/stylized_images_per_min']:.1f}, "
          f"pipeline_images_per_min {log['test/pipeline_images_per_min']:.1f}, post mean_miou "
          f"{log['test/post/mean_miou']:.4f}, s_loss {log['test//s_loss']:.6g}, {calls} NST call(s), "
-         f"launches {launches}")
-    return launches
+         f"launches {launches}, style_sums {sums}")
+    return {**launches, **sums}
 
 
 def phase_main2020(card: str, b7_apply_ms: float, stats_taps: bool = False):
@@ -2799,6 +2932,7 @@ def main() -> int:
     k = phase_kernels(card)
     kd = phase_kernels_depthwise(card, SEG_CHUNK)
     ks = phase_kernels_relu_stats(card)
+    kss = phase_kernels_style_sums(card)
     kg = phase_kernels_gram(card)
     kc = phase_kernels_conv1(card)
     kcc = phase_connected(card)
@@ -2837,6 +2971,11 @@ def main() -> int:
             ks["fwd_plain"], ks["bound_fwd"], None),
         row("relu_stats_bwd", "relu_stats.cu", "ops/pallas_relu_stats.py:175", stats_bwd, ks["err_bwd"], ks["bwd"],
             ks["bwd_plain"], ks["bound_bwd"], None),
+        row("style_sums_fwd", "style_sums.cu",
+            "ops/losses.py:style_stats (plain jnp that XLA fuses; no Pallas kernel)",
+            launches["style_sums_fwd"], kss["err_fwd"], kss["fwd"], kss["fwd_plain"], kss["bound_fwd"], None),
+        row("style_sums_bwd", "style_sums.cu", "ops/losses.py:style_stats (its XLA gradient; no Pallas kernel)",
+            launches["style_sums_bwd"], kss["err_bwd"], kss["bwd"], kss["bwd_plain"], kss["bound_bwd"], None),
         row("conv1", "conv1.cu", "ops/pallas_conv1.py:143", train["frozen"]["launches"]["conv1"], kc["err"], kc["ms"],
             kc["plain_ms"], kc["bound"], kc["library_ms"]),
         row("connected_components", "connected.cu",

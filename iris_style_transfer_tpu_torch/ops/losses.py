@@ -9,7 +9,8 @@ Counterpart of ``iris_style_transfer_tpu/ops/losses.py``:
     ``style_stats_split`` computes the pairs of an image split on H over
     ranks from the slabs' sums.
 
-Features are NCHW; every reduction accumulates in float32.  The losses
+Features are NCHW; every reduction accumulates in float32.  The BN loss's
+per-channel sums go through ``ops/style_sums.py``.  The losses
 return device scalars and never read them back.
 """
 
@@ -21,6 +22,7 @@ import torch
 
 from ..parallel.mesh import sum_over_group
 from .gram import gram_matrix
+from .style_sums import style_sums
 
 
 def _weights(weights: Sequence[float] | None, n: int) -> Sequence[float]:
@@ -61,17 +63,11 @@ def stats_from_sums(s1: torch.Tensor, s2: torch.Tensor, n: int) -> tuple[torch.T
     return mean, torch.sqrt(var)
 
 
-def _sums(feat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-channel spatial (sum, sum of squares) of (B, C, H, W) features,
-    in float32."""
-    f = feat.float()
-    return f.sum(dim=(-2, -1)), (f * f).sum(dim=(-2, -1))
-
-
 def style_stats(feat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-channel spatial (mean, std) of (B, C, H, W) features -> (B, C),
-    from one sum / sum-of-squares pass in float32."""
-    return stats_from_sums(*_sums(feat), feat.shape[-2] * feat.shape[-1])
+    from one sum / sum-of-squares pass in float32 (:func:`style_sums`: the
+    hand-written kernels on a CUDA tensor)."""
+    return stats_from_sums(*style_sums(feat), feat.shape[-2] * feat.shape[-1])
 
 
 def stats_from_slab_sums(sums: Sequence[tuple[torch.Tensor, torch.Tensor]], ns: Sequence[int],
@@ -90,7 +86,7 @@ def stats_from_slab_sums(sums: Sequence[tuple[torch.Tensor, torch.Tensor]], ns: 
 def style_stats_split(feats: Sequence[torch.Tensor], group, parts: int) -> list[tuple[torch.Tensor, torch.Tensor]]:
     """:func:`style_stats` of features whose H is split over ``group``'s
     ``parts`` ranks, each rank holding its slab (``parallel/mesh.py``)."""
-    return stats_from_slab_sums([_sums(f) for f in feats], [f.shape[-2] * f.shape[-1] * parts for f in feats], group)
+    return stats_from_slab_sums([style_sums(f) for f in feats], [f.shape[-2] * f.shape[-1] * parts for f in feats], group)
 
 
 def style_loss_bn_stats(
