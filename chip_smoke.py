@@ -17,7 +17,13 @@ exit:
                BN loss's style sums (``ops/style_sums.py``, both layouts,
                g bit-exact, sums within 1e-6 of sum|terms| of float64, each
                2019 tap timed against the eager chain it replaced, the
-               launches of one classic NST call counted) and the
+               launches of one classic NST call counted), the compact
+               L-BFGS step's three passes (``ops/lbfgs.py``; bf16 history
+               at the mains' NST images, float32 at the 512-px demo's
+               image, both at an N off the 16-byte vector: each step
+               against the plain step, its sums and the direction against
+               float64, two runs bit-equal, timed against the torch step
+               it replaced) and the
                Gram within their stated tolerances (``ops/relu_stats.py``,
                ``ops/blockwise_gram.py``; the Gram at the 2019 relu1_1 and
                the 512-px bs-4 tap shapes, against a bmm with TF32 off),
@@ -78,7 +84,8 @@ exit:
                with ``--stats_taps on``; the kernels' launch counts are
                reset just before and read just after, and with stats taps
                they must be 4 x (closures + 2) forward and 4 x closures
-               backward per NST call.
+               backward per NST call; the L-BFGS pair pass closures, its
+               dots and direction passes closures - 1 per NST call.
   6. main2020 — ``workloads.ist_openeds2020.main`` in-process on the gaze
                twin (24 frames in one batch of 128, 400x640, B7 U-Net +
                ResNet50 + both estimators at full width, 20 closures),
@@ -86,14 +93,16 @@ exit:
                the depthwise kernel must launch exactly 102 x (1 + 2 x 128
                / SEG_CHUNK) times; then a timing breakdown of the batch body.
   7. demos   — ``demos.nst_demo --gram --sw 1e6 --size 512`` (exactly 4 x
-               (closures + 1) Gram launches) and ``demos.iris_nst_demo``, in-process
+               (closures + 1) Gram launches; the L-BFGS passes as in 5, on
+               float32 history, here and in each ``iris_nst_demo``) and
+               ``demos.iris_nst_demo``, in-process
                on the card, writing their PNGs to a temporary directory; then
                both demos on the JPEG fixtures (``tests/torch_fixtures``,
                decoded by ``utils/jpeg.py``): ``nst_demo`` on the 512x512
                content/style pair at BASELINE.json config 1's settings
                (``--size 256 --optimizer adam --epochs 200 --gram --sw 1e6``;
                Gram 4 x (steps + 1), conv1 and relu_pool_fwd steps + 2,
-               relu_pool_bwd steps) and ``iris_nst_demo`` on the two eye
+               relu_pool_bwd steps, no L-BFGS pass) and ``iris_nst_demo`` on the two eye
                JPEGs (conv1 and relu_pool_fwd closures + 2, relu_pool_bwd
                closures).
   8. train2019 — ``workloads.iris_classification.main`` at full width
@@ -248,11 +257,11 @@ def phase_device():
 
 
 def phase_build():
-    from iris_style_transfer_tpu_torch.ops import (blockwise_gram, connected, conv1, cuda_build, depthwise, relu_pool,
-                                                   relu_stats, style_sums)
+    from iris_style_transfer_tpu_torch.ops import (blockwise_gram, connected, conv1, cuda_build, depthwise, lbfgs,
+                                                   relu_pool, relu_stats, style_sums)
 
     t0 = time.perf_counter()
-    mods = (relu_pool, depthwise, relu_stats, style_sums, blockwise_gram, conv1, connected)
+    mods = (relu_pool, depthwise, relu_stats, style_sums, lbfgs, blockwise_gram, conv1, connected)
     with ThreadPoolExecutor(max_workers=len(mods)) as pool:  # one nvcc per source, together
         for f in [pool.submit(m._library) for m in mods]:
             f.result()
@@ -970,6 +979,180 @@ def phase_kernels_style_sums(card: str):
             "layouts": layouts}
 
 
+LBFGS_SHAPES = ((64, 3, 224, 224), (128, 3, 224, 224))  # the 2019 and 2020 mains' NST images
+# (shape, history type): the mains' images with bf16 history; the 512-px demo's
+# image with float32 history (make_nst_fn's default); N = 3 x 511 x 511, no
+# multiple of 4, so that every pass moves one element a load, in both types
+LBFGS_CASES = ((LBFGS_SHAPES[0], "bfloat16"), (LBFGS_SHAPES[1], "bfloat16"), ((1, 3, 512, 512), "float32"),
+               ((1, 3, 511, 511), "float32"), ((1, 3, 511, 511), "bfloat16"))
+LBFGS_M, LBFGS_STEPS, LBFGS_STALE = 10, 25, 12
+LBFGS_UPDATE_TOL = 2.0**-6  # as tests/test_torch_cuda.py: float32 order can tip a coefficient's bf16 rounding
+
+
+def _lbfgs_torch_step(state, g, lr: float = 1.0):
+    """The compact step as the port ran it before ``ops/lbfgs.py``: the
+    yardstick ``library_ms``, timed only.  float32 copies of the bf16
+    history, six float32 products (SY and YY in full) and eager passes."""
+    import torch
+    from iris_style_transfer_tpu_torch.transfer import lbfgs as tl
+
+    m = state.s_hist.shape[0]
+    y, s = g - state.prev_g, state.prev_step
+    ys, yy = (y * s).sum(), (y * y).sum()
+    accept = ys > 1e-10
+    w = (state.count % m).reshape(1)
+    for buf, v in ((state.s_hist, s), (state.y_hist, y)):
+        row = torch.where(accept, v.to(buf.dtype), buf.index_select(0, w)[0])
+        buf.index_copy_(0, w, row[None])
+    rho = state.rho.index_copy(0, w, torch.where(accept, 1.0 / ys.clamp_min(1e-30), state.rho[w][0]).reshape(1))
+    S, Y = state.s_hist.reshape(m, -1).float(), state.y_hist.reshape(m, -1).float()
+    gb = g.reshape(-1).to(state.s_hist.dtype).float()
+    new = state._replace(rho=rho, gamma=torch.where(accept, ys / yy.clamp_min(1e-30), state.gamma),
+                         count=state.count + accept.to(state.count.dtype), SY=S @ Y.t(), YY=Y @ Y.t())
+    top, bot = tl._coefficients(new, torch.stack([S @ gb, Y @ gb]), torch.arange(m, device=g.device))
+    St, Yb = (top @ S).reshape(g.shape), (bot @ Y).reshape(g.shape)
+    return lr * -(new.gamma * g + St + new.gamma * Yb)
+
+
+def phase_kernels_lbfgs(card: str):
+    """The compact L-BFGS step's passes (``ops/lbfgs.py``) at LBFGS_CASES,
+    m = 10: 25 kernel steps on a separable quartic (step 12 repeats the
+    previous gradient, so its pair is refused), each against the plain step
+    from the same state (history bit-equal, update within
+    LBFGS_UPDATE_TOL); against float64, the pair's sums, the dots pass's
+    S_j.gb and Y_j.gb and the carried SY and YY within ``sum_depth``
+    roundings, and the direction pass on given coefficients within m + 4;
+    two runs bit-equal.  Then, at the mains' shapes, the step's device
+    time against the plain step's and the torch step's it replaced, and
+    each pass against its bound, in turns."""
+    import torch
+    from iris_style_transfer_tpu_torch.ops import lbfgs as lb
+    from iris_style_transfer_tpu_torch.transfer import lbfgs as tl
+
+    def clone(st):
+        return st._replace(**{k: v.clone() for k, v in st._asdict().items() if torch.is_tensor(v)})
+
+    out = {}
+    for shape, dname in LBFGS_CASES:
+        dtype, n = getattr(torch, dname), math.prod(shape)
+        pl = lb.plan(n, LBFGS_M, dtype)
+        depth = lb.sum_depth(n, pl)
+        worst = {"update": 0.0, "pair": 0.0, "gb": 0.0, "SY": 0.0, "YY": 0.0, "direction": 0.0}
+        no_pair = torch.zeros(1, dtype=torch.bool, device="cuda")
+        slot0 = torch.zeros(1, dtype=torch.int64, device="cuda")
+        runs = []
+        for run in range(2):
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+            a, b, x = (t.contiguous(memory_format=torch.channels_last) for t in (
+                torch.rand(shape, generator=gen, device="cuda") * 2 + 0.5,
+                torch.randn(shape, generator=gen, device="cuda"),
+                torch.randn(shape, generator=gen, device="cuda") * 0.5))
+            state = tl.lbfgs_init(shape, LBFGS_M, dtype=dtype, device="cuda")
+            ups = []
+            for k in range(LBFGS_STEPS):
+                # step LBFGS_STALE takes the previous gradient again: y = 0, its pair refused
+                g = state.prev_g.clone() if k == LBFGS_STALE else a * x - b + 0.1 * x**3
+                if run == 0 and k:
+                    yv = (g - state.prev_g).double().reshape(-1)
+                    terms = torch.stack([yv * state.prev_step.double().reshape(-1), yv * yv,
+                                         g.double().abs().reshape(-1)])
+                    ok, err = lb.within_sum_bound(lb._kernel_pair(g, state.prev_g, state.prev_step), terms,
+                                                  lb.sum_depth(n, lb.plan(n, 1, torch.float32)))
+                    worst["pair"] = max(worst["pair"], err)
+                    if not ok:
+                        raise AssertionError(f"lbfgs pair pass at {shape} {dname} step {k}: {err:.3g} of sum|terms|")
+                    del yv, terms
+                if run == 0:
+                    want, plain = tl._step(clone(state), g, 1.0, "compact", None, lb.PLAIN)
+                upd, state = tl._step(state, g, 1.0, "compact", None, lb.KERNELS)
+                ups.append(upd)
+                if run == 0:
+                    rel = ((upd - want).norm() / want.norm()).item()
+                    worst["update"] = max(worst["update"], rel)
+                    same = torch.equal(state.s_hist, plain.s_hist) and torch.equal(state.y_hist, plain.y_hist)
+                    S, Y = state.s_hist.reshape(LBFGS_M, -1).double(), state.y_hist.reshape(LBFGS_M, -1).double()
+                    for name, got, exact, scale in (("SY", state.SY, S @ Y.T, S.abs() @ Y.abs().T),
+                                                    ("YY", state.YY, Y @ Y.T, Y.abs() @ Y.abs().T)):
+                        e = ((got.double() - exact).abs() / scale.clamp_min(1e-300)).max().item()
+                        worst[name] = max(worst[name], e)
+                    # the dots pass's rows S_j.gb and Y_j.gb over the history the step left, as it read
+                    # them (no pair this time, so nothing is written)
+                    if k:
+                        gb = g.reshape(-1).to(dtype).double()
+                        rows = lb._kernel_dots(state.s_hist, state.y_hist, g, state.prev_g, state.prev_step,
+                                               no_pair, slot0)[:2]
+                        ok, err = lb.within_sum_bound(rows, torch.stack([S * gb, Y * gb]), depth)
+                        worst["gb"] = max(worst["gb"], err)
+                        if not ok:
+                            raise AssertionError(f"lbfgs dots pass at {shape} {dname} step {k}: S_j.gb, Y_j.gb "
+                                                 f"{err:.3g} of sum|terms| off float64")
+                        del gb, rows
+                    del S, Y, want, plain
+                    if not (same and rel <= LBFGS_UPDATE_TOL and max(worst["SY"], worst["YY"]) <= depth * 2.0**-24):
+                        raise AssertionError(f"lbfgs kernels at {shape} {dname} step {k}: history equal {same}, "
+                                             f"update {rel:.3g} off the plain step, {worst}, bound "
+                                             f"{depth * 2.0**-24:.3g}")
+                x = x + upd
+            runs.append((ups, state))
+        if not all(torch.equal(p, q) for p, q in zip(runs[0][0], runs[1][0])):
+            raise AssertionError(f"lbfgs kernels at {shape} {dname}: two runs differ")
+        # the direction pass on given coefficients, each element within m + 4 roundings of float64
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+        top, bot = (torch.randn(LBFGS_M, generator=gen, device="cuda") for _ in range(2))
+        gamma, g = torch.tensor(0.3, device="cuda"), a * x - b + 0.1 * x**3
+        S, Y, gd = state.s_hist.double(), state.y_hist.double(), g.double()
+        got = lb._kernel_direction(state.s_hist, state.y_hist, g, top, bot, gamma, 1.0).double()
+        exact = -(0.3 * gd + torch.einsum("j,j...->...", top.double(), S)
+                  + 0.3 * torch.einsum("j,j...->...", bot.double(), Y))
+        scale = 0.3 * gd.abs() + torch.einsum("j,j...->...", top.double().abs(), S.abs()) \
+            + 0.3 * torch.einsum("j,j...->...", bot.double().abs(), Y.abs())
+        worst["direction"] = ((got - exact).abs() / scale.clamp_min(1e-300)).max().item()
+        if not ((got - exact).abs() <= (LBFGS_M + 4) * 2.0**-24 * scale).all():
+            raise AssertionError(f"lbfgs direction pass at {shape} {dname}: {worst['direction']:.3g} of its scale "
+                                 f"off float64, bound {(LBFGS_M + 4) * 2.0**-24:.3g}")
+        del S, Y, gd, got, exact, scale
+        _log("kernels", f"lbfgs {shape} {dname} m {LBFGS_M} ({pl}): {LBFGS_STEPS} steps, count {int(state.count)}; "
+             f"update within {worst['update']:.3g} of the plain step's; pair {worst['pair']:.3g}, S_j.gb and Y_j.gb "
+             f"{worst['gb']:.3g}, SY {worst['SY']:.3g}, YY {worst['YY']:.3g} of sum|terms| off float64 (bound "
+             f"{depth * 2.0**-24:.3g}); direction {worst['direction']:.3g} (bound {(LBFGS_M + 4) * 2.0**-24:.3g}); "
+             f"two runs bit-equal")
+        if shape not in LBFGS_SHAPES:
+            del a, b, x, g, state, runs
+            continue
+
+        # timing at the last state: every step writes slot count % m again; the
+        # torch step it replaced kept the history NCHW-contiguous.  Device time
+        # from a trace: the host enqueues a step's small torch ops more slowly
+        # than the card runs them, so events around queued calls read the host
+        g = a * x - b + 0.1 * x**3
+        acc, w = state.count > -1, (state.count % LBFGS_M).reshape(1)
+        top = torch.randn(LBFGS_M, device="cuda")
+        old = state._replace(s_hist=state.s_hist.contiguous(), y_hist=state.y_hist.contiguous())
+        ms = _turns({"kernel": lambda: tl._step(state, g, 1.0, "compact", None, lb.KERNELS),
+                     "plain": lambda: tl._step(state, g, 1.0, "compact", None, lb.PLAIN),
+                     "library": lambda: _lbfgs_torch_step(old, g),
+                     "pair": lambda: lb._kernel_pair(g, state.prev_g, state.prev_step),
+                     "dots": lambda: lb._kernel_dots(state.s_hist, state.y_hist, g, state.prev_g, state.prev_step,
+                                                     acc, w),
+                     "direction": lambda: lb._kernel_direction(state.s_hist, state.y_hist, g, top, top, state.gamma,
+                                                               1.0)}, iters=5, timer=_device_ms)
+        vec4 = _nbytes(g)  # one float32 vector of N
+        hist = _nbytes(state.s_hist, state.y_hist)
+        b_pair = _bound(3 * vec4)  # g, prev_g, prev_step read
+        b_dots = _bound(3 * vec4 + hist + hist // LBFGS_M)  # the vectors and both buffers read, one pair written
+        b_dir = _bound(hist + 2 * vec4)  # both buffers and g read, the update written
+        ms["bound"] = (b_pair[0] + b_dots[0] + b_dir[0], "bytes")
+        _log("kernels", f"lbfgs step {shape} bf16 device ms on {card}: kernels {ms['kernel']:.4f} (bound "
+             f"{ms['bound'][0]:.4f}, {100 * ms['bound'][0] / ms['kernel']:.1f}%), plain {ms['plain']:.4f}, the torch "
+             f"step it replaced {ms['library']:.4f}; pair {ms['pair']:.4f} ({100 * b_pair[0] / ms['pair']:.1f}% of "
+             f"its bound), dots {ms['dots']:.4f} ({100 * b_dots[0] / ms['dots']:.1f}%), direction "
+             f"{ms['direction']:.4f} ({100 * b_dir[0] / ms['direction']:.1f}%)")
+        out[shape] = {**ms, "err": worst["update"]}
+        del a, b, x, g, state, runs, old
+        torch.cuda.empty_cache()
+    return out[LBFGS_SHAPES[0]]
+
+
 def phase_kernels_gram(card: str):
     """The Gram kernels against an f64 Gram and the plain bmm (TF32 off) at
     the eight style-tap shapes and odd ones, on both kernels; each tap timed
@@ -1534,8 +1717,25 @@ def _check_launches(where: str, launches: dict, nst_calls: int, stats_taps: bool
         raise AssertionError(f"{where} without --stats_taps launched relu_stats: {launches}")
 
 
+def _lbfgs_launches(nst_calls: int, closures: int) -> dict:
+    """The L-BFGS passes of ``nst_calls`` NST calls of ``closures`` each:
+    the pair pass every closure, the dots and direction passes every
+    closure after the first."""
+    after_first = nst_calls * (closures - 1)
+    return {"lbfgs_pair": nst_calls * closures, "lbfgs_dots": after_first, "lbfgs_direction": after_first}
+
+
+def _check_lbfgs(where: str, launches: dict, nst_calls: int, closures: int) -> dict:
+    want = _lbfgs_launches(nst_calls, closures)
+    got = {k: launches[k] for k in want}
+    if got != want or nst_calls == 0:
+        raise AssertionError(f"{where} over {nst_calls} NST call(s) launched the L-BFGS passes {got}; {want} expected")
+    return got
+
+
 def phase_main(card: str, stats_taps: bool = False):
     from iris_style_transfer_tpu_torch.ops import conv1 as c1
+    from iris_style_transfer_tpu_torch.ops import lbfgs as lb
     from iris_style_transfer_tpu_torch.ops import relu_pool as rp
     from iris_style_transfer_tpu_torch.ops import relu_stats as rs
     from iris_style_transfer_tpu_torch.ops import style_sums as ss
@@ -1543,8 +1743,9 @@ def phase_main(card: str, stats_taps: bool = False):
 
     argv = ["-bs", "64", "--nst_epochs", str(MAIN_CLOSURES)] + (["--stats_taps", "on"] if stats_taps else [])
     before = dict(ss.LAUNCHES)
-    results, launches, calls, _ = _run_main(wl, argv, (rp.LAUNCHES, rs.LAUNCHES, c1.LAUNCHES))
+    results, launches, calls, _ = _run_main(wl, argv, (rp.LAUNCHES, rs.LAUNCHES, c1.LAUNCHES, lb.LAUNCHES))
     sums = {k: ss.LAUNCHES[k] - before[k] for k in before}
+    _check_lbfgs(f"the 2019 main (stats_taps {stats_taps})", launches, calls, MAIN_CLOSURES)
     # per batch Classifier2's 4 taps in pre and in post; with classic taps the
     # NST's 4 a closure forward and backward and 4 of the style target
     nst = 0 if stats_taps else 4 * calls
@@ -1571,6 +1772,7 @@ def phase_main2020(card: str, b7_apply_ms: float, stats_taps: bool = False):
     import torch
     from iris_style_transfer_tpu_torch.ops import conv1 as c1
     from iris_style_transfer_tpu_torch.ops import depthwise as dw
+    from iris_style_transfer_tpu_torch.ops import lbfgs as lb
     from iris_style_transfer_tpu_torch.ops import relu_pool as rp
     from iris_style_transfer_tpu_torch.ops import relu_stats as rs
     from iris_style_transfer_tpu_torch.workloads import ist_openeds2020 as wl
@@ -1579,7 +1781,8 @@ def phase_main2020(card: str, b7_apply_ms: float, stats_taps: bool = False):
     want_dw = 102 * (1 + 2 * bs // chunk)  # the style iris, then pre and post per chunk
     torch.cuda.reset_peak_memory_stats()
     argv = ["-bs", str(bs), "--nst_epochs", str(MAIN_CLOSURES)] + (["--stats_taps", "on"] if stats_taps else [])
-    results, launches, calls, wall = _run_main(wl, argv, (rp.LAUNCHES, dw.LAUNCHES, rs.LAUNCHES, c1.LAUNCHES))
+    results, launches, calls, wall = _run_main(wl, argv, (rp.LAUNCHES, dw.LAUNCHES, rs.LAUNCHES, c1.LAUNCHES,
+                                                          lb.LAUNCHES))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log = results[("validation/", 1.0, MAIN_CLOSURES)]
     keys = [f"validation//{p}/degree_distance{i}" for p in ("pre", "post") for i in (1, 2)]
@@ -1588,6 +1791,7 @@ def phase_main2020(card: str, b7_apply_ms: float, stats_taps: bool = False):
         if k not in log or not math.isfinite(log[k]):
             raise AssertionError(f"workload metric {k} missing or not finite: {log.get(k)}")
     _check_launches("the 2020 main", launches, calls, stats_taps, calls * (MAIN_CLOSURES + 2))
+    _check_lbfgs(f"the 2020 main (stats_taps {stats_taps})", launches, calls, MAIN_CLOSURES)
     if launches["dw_conv_bn_silu"] != want_dw:
         raise AssertionError(f"dw_conv_bn_silu launched {launches['dw_conv_bn_silu']} times in the 2020 "
                              f"main; 102 x (1 + 2 x {bs}/{chunk}) = {want_dw} expected")
@@ -1769,49 +1973,51 @@ def phase_demos(card: str) -> int:
     from iris_style_transfer_tpu_torch.demos import iris_nst_demo, nst_demo
     from iris_style_transfer_tpu_torch.ops import blockwise_gram as bg
     from iris_style_transfer_tpu_torch.ops import conv1 as c1
+    from iris_style_transfer_tpu_torch.ops import lbfgs as lb
     from iris_style_transfer_tpu_torch.ops import relu_pool as rp
 
-    counters = (bg.LAUNCHES, c1.LAUNCHES, rp.LAUNCHES)
+    counters = (bg.LAUNCHES, c1.LAUNCHES, rp.LAUNCHES, lb.LAUNCHES)
+    steps = _lbfgs_launches(1, DEMO_CLOSURES)  # an L-BFGS NST with float32 history
     with tempfile.TemporaryDirectory() as tmp:
-        bg.LAUNCHES["gram_matrix"] = 0
-        c1.LAUNCHES["conv1"] = 0
+        _reset(counters)
         out = os.path.join(tmp, "nst.png")
         res = nst_demo.main(["--gram", "--sw", str(GRAM_STYLE_WEIGHT), "--size", "512", "--epochs",
                              str(DEMO_CLOSURES), "--out", out, "--device", "cuda"])
-        gram_launches = bg.LAUNCHES["gram_matrix"]
-        if gram_launches != 4 * (DEMO_CLOSURES + 1) or c1.LAUNCHES["conv1"] != DEMO_CLOSURES + 2:
-            raise AssertionError(f"nst_demo --gram launched the Gram kernel {gram_launches} times and conv1 "
-                                 f"{c1.LAUNCHES['conv1']}; 4 x ({DEMO_CLOSURES} + 1) and {DEMO_CLOSURES} + 2 expected")
+        launches = _demo_launches("nst_demo --gram --size 512", counters,
+                                  {"gram_matrix": 4 * (DEMO_CLOSURES + 1), "conv1": DEMO_CLOSURES + 2, **steps})
+        gram_launches = launches["gram_matrix"]
         s_hist = res.s_loss_hist.cpu()
         if not (os.path.getsize(out) > 0 and s_hist.isfinite().all() and s_hist[-1] < s_hist[0]):
             raise AssertionError(f"nst_demo --gram: PNG {os.path.exists(out)}, s_loss {s_hist.tolist()}")
-        _log("demos", f"nst_demo --gram --sw {GRAM_STYLE_WEIGHT:g} --size 512 --epochs {DEMO_CLOSURES} on {card}: {gram_launches} Gram "
-             f"kernel launches, s_loss {s_hist[0].item():.6g} -> {s_hist[-1].item():.6g}")
+        _log("demos", f"nst_demo --gram --sw {GRAM_STYLE_WEIGHT:g} --size 512 --epochs {DEMO_CLOSURES} on {card}: "
+             f"launches {launches}, s_loss {s_hist[0].item():.6g} -> {s_hist[-1].item():.6g}")
 
         outdir = os.path.join(tmp, "iris")
+        _reset(counters)
         res = iris_nst_demo.main(["--epochs", str(DEMO_CLOSURES), "--outdir", outdir, "--device", "cuda"])
+        launches = _demo_launches("iris_nst_demo", counters, steps)
         names = ("content_eye.png", "style_eye.png", "content_iris.png", "style_iris.png",
                  "stylized_iris.png", "result_eye.png")
         missing = [n for n in names if not os.path.exists(os.path.join(outdir, n))]
         s_hist = res.s_loss_hist.cpu()
         if missing or not (s_hist.isfinite().all() and s_hist[-1] < s_hist[0]):
             raise AssertionError(f"iris_nst_demo: missing {missing}, s_loss {s_hist.tolist()}")
-        _log("demos", f"iris_nst_demo --epochs {DEMO_CLOSURES} on {card}: 6 PNGs, s_loss "
+        _log("demos", f"iris_nst_demo --epochs {DEMO_CLOSURES} on {card}: 6 PNGs, launches {launches}, s_loss "
              f"{s_hist[0].item():.6g} -> {s_hist[-1].item():.6g}")
 
         # BASELINE.json config 1's settings on the JPEG pair (the demo's
         # procedural images as a baseline 4:4:4 and a progressive 4:2:0 file
         # with restart markers)
         content, style = (os.path.join(FIXTURES, n) for n in ("content_512.jpg", "style_512.jpg"))
-        steps = BASELINE_NST_STEPS
+        adam = BASELINE_NST_STEPS  # Adam steps: no L-BFGS pass
         _reset(counters)
         t0 = time.perf_counter()
         res = nst_demo.main(["--content", content, "--style", style, *BASELINE_NST_ARGS, "--gram", "--sw",
                              str(GRAM_STYLE_WEIGHT), "--out", out, "--device", "cuda"])
         wall = time.perf_counter() - t0
         launches = _demo_launches("nst_demo on the JPEG pair", counters,
-                                  {"gram_matrix": 4 * (steps + 1), "conv1": steps + 2, "relu_pool_fwd": steps + 2,
-                                   "relu_pool_bwd": steps})
+                                  {"gram_matrix": 4 * (adam + 1), "conv1": adam + 2, "relu_pool_fwd": adam + 2,
+                                   "relu_pool_bwd": adam, **_lbfgs_launches(0, adam)})
         s_hist = res.s_loss_hist.cpu()
         x = res.x.float()
         if not (x.shape == (1, 3, 256, 256) and x.isfinite().all() and s_hist.isfinite().all()
@@ -1828,7 +2034,7 @@ def phase_demos(card: str) -> int:
                                   "--outdir", outdir, "--device", "cuda"])
         launches = _demo_launches("iris_nst_demo on the eye JPEGs", counters[1:],
                                   {"conv1": DEMO_CLOSURES + 2, "relu_pool_fwd": DEMO_CLOSURES + 2,
-                                   "relu_pool_bwd": DEMO_CLOSURES})
+                                   "relu_pool_bwd": DEMO_CLOSURES, **steps})
         s_hist = res.s_loss_hist.cpu()
         if not (s_hist.isfinite().all() and s_hist[-1] < s_hist[0] and res.x.isfinite().all()):
             raise AssertionError(f"iris_nst_demo on the eye JPEGs: s_loss {s_hist.tolist()}")
@@ -2933,6 +3139,7 @@ def main() -> int:
     kd = phase_kernels_depthwise(card, SEG_CHUNK)
     ks = phase_kernels_relu_stats(card)
     kss = phase_kernels_style_sums(card)
+    kl = phase_kernels_lbfgs(card)
     kg = phase_kernels_gram(card)
     kc = phase_kernels_conv1(card)
     kcc = phase_connected(card)
@@ -2976,6 +3183,10 @@ def main() -> int:
             launches["style_sums_fwd"], kss["err_fwd"], kss["fwd"], kss["fwd_plain"], kss["bound_fwd"], None),
         row("style_sums_bwd", "style_sums.cu", "ops/losses.py:style_stats (its XLA gradient; no Pallas kernel)",
             launches["style_sums_bwd"], kss["err_bwd"], kss["bwd"], kss["bwd_plain"], kss["bound_bwd"], None),
+        row("lbfgs_step", "lbfgs.cu",
+            "transfer/lbfgs.py:_compact_direction (plain jnp that XLA fuses; no Pallas kernel)",
+            sum(launches[k] for k in ("lbfgs_pair", "lbfgs_dots", "lbfgs_direction")), kl["err"], kl["kernel"],
+            kl["plain"], kl["bound"], kl["library"]),
         row("conv1", "conv1.cu", "ops/pallas_conv1.py:143", train["frozen"]["launches"]["conv1"], kc["err"], kc["ms"],
             kc["plain_ms"], kc["bound"], kc["library_ms"]),
         row("connected_components", "connected.cu",

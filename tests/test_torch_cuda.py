@@ -16,8 +16,10 @@ from iris_style_transfer_tpu_torch.ops import blockwise_gram as bg
 from iris_style_transfer_tpu_torch.ops import connected as cc
 from iris_style_transfer_tpu_torch.ops import conv1 as c1
 from iris_style_transfer_tpu_torch.ops import depthwise as dw
+from iris_style_transfer_tpu_torch.ops import lbfgs as lb
 from iris_style_transfer_tpu_torch.ops import relu_pool as rp
 from iris_style_transfer_tpu_torch.ops import relu_stats as rs
+from iris_style_transfer_tpu_torch.transfer import lbfgs as tlbfgs
 from iris_style_transfer_tpu_torch.transfer.nst import make_nst_fn
 
 pytestmark = pytest.mark.cuda
@@ -421,3 +423,105 @@ def test_connected_components_kernel_is_bit_exact(cuda, connectivity):
     for m in masks[:3] + masks[-3:]:
         assert torch.equal(cc.largest_component(m, connectivity).cpu(), cc.largest_component(m.cpu(), connectivity))
         assert torch.equal(cc.area_opening(m, 20, connectivity).cpu(), cc.area_opening(m.cpu(), 20, connectivity))
+
+
+# the L-BFGS step's passes (ops/lbfgs.py) at the IST mains' NST images, bf16
+# history, m = 10: 25 steps on a separable quartic; step 12 takes the
+# previous gradient again, so that y = 0 and its pair is refused
+LBFGS_SHAPES = [(64, 3, 224, 224), (128, 3, 224, 224)]
+# and float32 history (make_nst_fn's default) at the 512-px demo's image and
+# at an N that is no multiple of 4 (every pass one element a load)
+LBFGS_CASES = [(s, torch.bfloat16) for s in LBFGS_SHAPES] + [((1, 3, 512, 512), torch.float32),
+                                                             ((1, 3, 511, 511), torch.float32)]
+LBFGS_M, LBFGS_STEPS, LBFGS_STALE = 10, 25, 12
+# the kernel step against the plain step from the same state, relative L2 of
+# the update: the sums differ in their float32 order alone, but that can tip
+# a coefficient's bf16 rounding (2^-8 of it) the other way
+LBFGS_UPDATE_TOL = 2.0**-6
+
+
+def _lbfgs_problem(shape):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.rand(shape, generator=gen, device="cuda") * 2 + 0.5
+    b = torch.randn(shape, generator=gen, device="cuda")
+    x = torch.randn(shape, generator=gen, device="cuda") * 0.5
+    return [t.contiguous(memory_format=torch.channels_last) for t in (a, b, x)]
+
+
+def _lbfgs_grad(a, b, x, k, state):
+    return state.prev_g.clone() if k == LBFGS_STALE else a * x - b + 0.1 * x**3
+
+
+def _lbfgs_clone(state):
+    return state._replace(**{k: v.clone() for k, v in state._asdict().items() if torch.is_tensor(v)})
+
+
+@pytest.mark.parametrize("shape,dtype", LBFGS_CASES)
+def test_lbfgs_kernels_against_plain_and_float64(cuda, shape, dtype):
+    """Each kernel step against the plain step from the same state (the
+    history written bit-equal, the update within LBFGS_UPDATE_TOL); the
+    pair's sums and the carried SY and YY within ``sum_depth`` of float64
+    (``ops/lbfgs.py``); the direction pass on given coefficients within m
+    + 4 roundings of float64."""
+    a, b, x = _lbfgs_problem(shape)
+    n = x.numel()
+    depth = lb.sum_depth(n, lb.plan(n, LBFGS_M, dtype))
+    state = tlbfgs.lbfgs_init(shape, LBFGS_M, dtype=dtype, device="cuda")
+    for k in range(LBFGS_STEPS):
+        g = _lbfgs_grad(a, b, x, k, state)
+        if k:
+            y = (g - state.prev_g).double().reshape(-1)
+            terms = torch.stack([y * state.prev_step.double().reshape(-1), y * y, g.double().abs().reshape(-1)])
+            ok, err = lb.within_sum_bound(lb._kernel_pair(g, state.prev_g, state.prev_step), terms,
+                                          lb.sum_depth(n, lb.plan(n, 1, torch.float32)))
+            assert ok, (k, err)
+        want, plain = tlbfgs._step(_lbfgs_clone(state), g, 1.0, "compact", None, lb.PLAIN)
+        upd, state = tlbfgs._step(state, g, 1.0, "compact", None, lb.KERNELS)
+        assert torch.equal(state.s_hist, plain.s_hist) and torch.equal(state.y_hist, plain.y_hist), k
+        assert ((upd - want).norm() / want.norm()).item() <= LBFGS_UPDATE_TOL, k
+        assert upd.stride() == g.stride()
+        S, Y = state.s_hist.reshape(LBFGS_M, -1).double(), state.y_hist.reshape(LBFGS_M, -1).double()
+        for got, exact, scale in ((state.SY, S @ Y.T, S.abs() @ Y.abs().T), (state.YY, Y @ Y.T, Y.abs() @ Y.abs().T)):
+            assert ((got.double() - exact).abs() <= depth * 2.0**-24 * scale).all(), k
+        del S, Y
+        x = x + upd
+    assert torch.isfinite(x).all() and 0 < int(state.count) < LBFGS_STEPS - 1
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    top, bot = torch.randn(LBFGS_M, generator=gen, device="cuda"), torch.randn(LBFGS_M, generator=gen, device="cuda")
+    gamma, g = torch.tensor(0.3, device="cuda"), _lbfgs_grad(a, b, x, 0, state)
+    got = lb._kernel_direction(state.s_hist, state.y_hist, g, top, bot, gamma, 1.0).double()
+    S, Y = state.s_hist.double(), state.y_hist.double()
+    parts = [0.3 * g.double(), torch.einsum("j,j...->...", top.double(), S),
+             0.3 * torch.einsum("j,j...->...", bot.double(), Y)]
+    scale = 0.3 * g.double().abs() + torch.einsum("j,j...->...", top.double().abs(), S.abs()) \
+        + 0.3 * torch.einsum("j,j...->...", bot.double().abs(), Y.abs())
+    assert ((got + sum(parts)).abs() <= (LBFGS_M + 4) * 2.0**-24 * scale).all()
+
+
+@pytest.mark.parametrize("shape", LBFGS_SHAPES)
+def test_lbfgs_kernels_repeat_bit_for_bit_sync_free_three_passes_a_step(cuda, shape):
+    """Two runs of the kernel steps are bit-equal (ordered sums, no
+    atomics); no step reads a device value on the host
+    (``set_sync_debug_mode("error")``); the first step launches the pair
+    pass alone, every later one each of the three passes once."""
+    runs = []
+    for _ in range(2):
+        a, b, x = _lbfgs_problem(shape)
+        state = tlbfgs.lbfgs_init(shape, LBFGS_M, dtype=torch.bfloat16, device="cuda")
+        ups, counts = [], []
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for k in range(LBFGS_STEPS):
+                before = dict(lb.LAUNCHES)
+                upd, state = tlbfgs.lbfgs_step(state, _lbfgs_grad(a, b, x, k, state))
+                counts.append(tuple(lb.LAUNCHES[n] - before[n] for n in before))
+                ups.append(upd)
+                x = x + upd
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        runs.append((ups, state))
+        assert counts == [(1, 0, 0)] + [(1, 1, 1)] * (LBFGS_STEPS - 1)
+    (u1, s1), (u2, s2) = runs
+    assert all(torch.equal(p, q) for p, q in zip(u1, u2))
+    assert torch.equal(s1.SY, s2.SY) and torch.equal(s1.YY, s2.YY) and torch.equal(s1.s_hist, s2.s_hist)
