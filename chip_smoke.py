@@ -1898,7 +1898,7 @@ def phase_train_gaze(card: str):
     from iris_style_transfer_tpu_torch.models import GazeEstimator2
     from iris_style_transfer_tpu_torch.ops import conv1 as c1
     from iris_style_transfer_tpu_torch.workloads import gaze_estimation as wl
-    from iris_style_transfer_tpu_torch.workloads.iris_classification import trainable
+    from iris_style_transfer_tpu_torch.runtime.checkpoint import trainable
 
     cwd = os.getcwd()
     out = {}
@@ -2337,7 +2337,7 @@ def _b7_losses(plain: bool, steps: int = B7_LOSS_STEPS) -> list[float]:
     from iris_style_transfer_tpu_torch.models import EfficientNet
     from iris_style_transfer_tpu_torch.ops import depthwise as dw
     from iris_style_transfer_tpu_torch.tools.replicate_synthetic_gaze import b7_train_loss
-    from iris_style_transfer_tpu_torch.workloads.iris_classification import trainable
+    from iris_style_transfer_tpu_torch.runtime.checkpoint import trainable
 
     imgs, segs, _ = synthetic_eye_batch(2, seed=SEED)
     x, y = torch.from_numpy(imgs).cuda(), torch.from_numpy(segs).long().cuda()
@@ -2391,7 +2391,7 @@ def _b7_step_split(card: str) -> dict:
     from iris_style_transfer_tpu_torch.models import EfficientNet
     from iris_style_transfer_tpu_torch.ops import depthwise as dw
     from iris_style_transfer_tpu_torch.tools.replicate_synthetic_gaze import b7_train_loss
-    from iris_style_transfer_tpu_torch.workloads.iris_classification import trainable
+    from iris_style_transfer_tpu_torch.runtime.checkpoint import trainable
 
     imgs, segs, _ = synthetic_eye_batch(2, seed=SEED)
     x, y = torch.from_numpy(imgs).cuda(), torch.from_numpy(segs).long().cuda()

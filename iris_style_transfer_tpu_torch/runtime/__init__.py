@@ -6,7 +6,8 @@ from .checkpoint import (
     save_checkpoint,
     save_state,
     save_training_state,
+    trainable,
 )
 from .config import WorkloadConfig, add_common_args, parse_config
 from .logging import MetricLogger
-from .profiler import StepTimer
+from .profiler import StepTimer, sync

@@ -115,6 +115,15 @@ def restore_state(ckpt_dir: str, template, step: int | None = None):
     return step, pytree.tree_unflatten(out, spec)
 
 
+def trainable(tree) -> list[torch.Tensor]:
+    """Every leaf of a parameter tree, marked as requiring grad, in tree
+    order: the optimizer's parameter list."""
+    leaves = pytree.tree_leaves(tree)
+    for t in leaves:
+        t.requires_grad_(True)
+    return leaves
+
+
 def adam_state(opt: torch.optim.Adam) -> list[dict]:
     """``opt``'s per-parameter state (step, first and second moments) in
     parameter order; zeros for a parameter that has taken no step yet."""

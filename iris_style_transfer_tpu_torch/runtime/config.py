@@ -85,8 +85,8 @@ class WorkloadConfig:
 
 
 def add_common_args(parser: argparse.ArgumentParser, defaults: WorkloadConfig) -> None:
-    """Register the reference's flags (same short names) and the JAX
-    package's knobs."""
+    """Register the reference's flags (same short names), the JAX
+    package's knobs and the port's ``--device``."""
     p = parser
     p.add_argument("-P", "--project", type=str, default=defaults.project)
     p.add_argument("-seed", "--seed", type=int, default=defaults.seed)
@@ -116,6 +116,8 @@ def add_common_args(parser: argparse.ArgumentParser, defaults: WorkloadConfig) -
     p.add_argument("--history_size", type=int, default=defaults.history_size)
     p.add_argument("--pallas_gram", type=str, choices=("auto", "on", "off"), default=defaults.pallas_gram)
     p.add_argument("--stats_taps", type=str, choices=("auto", "on", "off"), default=defaults.stats_taps)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device to run on; a CUDA request without CUDA fails")
 
 
 def parse_config(parser: argparse.ArgumentParser, defaults: WorkloadConfig, argv=None):

@@ -250,6 +250,13 @@ def traced(fn, ok, what: str, cpu: bool = True):
     raise AssertionError(f"torch.profiler did not trace {what} in {PROFILER_TRIES} tries")
 
 
+def sync(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` when it is a CUDA device: the
+    synchronize that ends a :class:`StepTimer` block."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 class StepTimer:
     """Steps/sec and items/sec, excluding the first (warm-up) measurement
     by default."""

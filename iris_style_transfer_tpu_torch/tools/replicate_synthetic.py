@@ -33,10 +33,10 @@ import torch.nn.functional as F
 from ..data import build_ist_dataset, synthetic_openeds2019
 from ..models import RITnet
 from ..ops.metrics import iou_per_class
-from ..runtime import MetricLogger, restore_params
+from ..runtime import MetricLogger, restore_params, trainable
 from ..runtime.config import WorkloadConfig, resolve_device
 from ..utils import prepare_dir
-from ..workloads.iris_classification import CKPT_DIR, iris_classification, seeded_vgg19, trainable
+from ..workloads.iris_classification import CKPT_DIR, iris_classification, seeded_vgg19
 from ..workloads.ist_openeds2019 import iris_style_transfer_openeds2019
 
 CHUNK = 8  # frames per RITnet transform / apply call

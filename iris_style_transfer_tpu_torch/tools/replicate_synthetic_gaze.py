@@ -36,11 +36,11 @@ from ..models import EfficientNet, GazeEstimator1, GazeEstimator2
 from ..ops.ellipse import extract_eye_landmarks
 from ..ops.image import gray_to_rgb, imagenet_normalize, pad_height
 from ..ops.metrics import angular_distance, iou_per_class
-from ..runtime import MetricLogger
+from ..runtime import MetricLogger, trainable
 from ..runtime.config import WorkloadConfig, resolve_device
 from ..utils import prepare_dir
 from ..workloads.gaze_estimation import make_steps
-from ..workloads.iris_classification import seeded_vgg19, trainable
+from ..workloads.iris_classification import seeded_vgg19
 from ..workloads.ist_openeds2020 import iris_style_transfer_openeds2020, make_style_iris
 from .replicate_synthetic import shuffled_steps, stacked, stage_done, write_summary
 

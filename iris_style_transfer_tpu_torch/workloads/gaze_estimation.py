@@ -63,8 +63,8 @@ from ..ops.ellipse import extract_eye_landmarks
 from ..ops.image import to_unit_float
 from ..ops.metrics import angular_distance, cosine_embedding_loss
 from ..parallel.mesh import Mesh, gather_batch, one_rank, pmean_grads, replicated
-from ..runtime import MetricLogger, StepTimer, resume_training_state, save_training_state
-from ..runtime.profiler import at_batch, new_run, span
+from ..runtime import MetricLogger, StepTimer, resume_training_state, save_training_state, trainable
+from ..runtime.profiler import at_batch, new_run, span, sync
 from ..runtime.config import (
     WorkloadConfig,
     add_common_args,
@@ -75,7 +75,6 @@ from ..runtime.config import (
     spawns_ranks,
 )
 from ..utils import seed as seed_all
-from .iris_classification import _sync, trainable
 
 LRS = (1e-6, 1e-5, 1e-4)
 N_TRAIN, N_EVAL = 96, 32  # synthetic frames per split
@@ -243,7 +242,7 @@ def gaze_estimation(cfg: WorkloadConfig, device: torch.device, lrs=LRS, effnet_w
                 drop_gen.manual_seed(cfg.seed * 1_000_000_000 + e * 100_000 + bi)
                 with timer:
                     _, o = train_step(params, opt, x, y, drop_gen)
-                    _sync(device)
+                    sync(device)
                 preds.append(gather_batch(mesh, o))
                 labels.append(gather_batch(mesh, y))
             at_batch(None)
@@ -281,8 +280,6 @@ def main(argv: list[str] | None = None):
                         help="ported smp Unet(efficientnet-b7) npz for estimator 1's landmark extraction")
     parser.add_argument("--resnet_weights", type=str, default="",
                         help="ported ResNet50 IMAGENET1K_V2 npz for GazeEstimator2's backbone")
-    parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device to run on; a CUDA request without CUDA fails")
     cfg, args = parse_config(parser, defaults, argv)
     if cfg.estimator not in (1, 2):
         raise SystemExit(f"-estimator must be 1 or 2, got {cfg.estimator}")

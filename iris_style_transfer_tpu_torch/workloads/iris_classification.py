@@ -35,14 +35,13 @@ import argparse
 import os
 
 import torch
-import torch.utils._pytree as pytree
 
 from ..data import batch_iterator, build_ir_dataset, load_data_openeds2019, prefetch_to_device, synthetic_openeds2019
 from ..models import Classifier1, Classifier2, RITnet, VGG19, load_pretrained
 from ..ops.image import gray_to_rgb, to_unit_float
 from ..ops.metrics import classification_metrics, cross_entropy
 from ..parallel.mesh import Mesh, gather_batch, mlp_tp_spec, one_rank, pmean_grads, replicated, shard_params
-from ..runtime import MetricLogger, StepTimer, resume_training_state, save_training_state
+from ..runtime import MetricLogger, StepTimer, resume_training_state, save_training_state, sync, trainable
 from ..runtime.config import (
     WorkloadConfig,
     add_common_args,
@@ -55,20 +54,6 @@ from ..runtime.config import (
 from ..utils import seed as seed_all
 
 CKPT_DIR = "saved/checkpoints/iris_classification"
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def trainable(tree) -> list[torch.Tensor]:
-    """Every leaf of a parameter tree, marked as requiring grad, in tree
-    order: the optimizer's parameter list."""
-    leaves = pytree.tree_leaves(tree)
-    for t in leaves:
-        t.requires_grad_(True)
-    return leaves
 
 
 def make_steps(compute_dtype, mesh: Mesh | None = None):
@@ -185,7 +170,7 @@ def iris_classification(cfg: WorkloadConfig, device: torch.device, vgg_weights: 
             drop_gen.manual_seed(cfg.seed * 1_000_000_000 + e * 10_000 + bi)  # per step, so resume repeats it
             with timer:
                 _, p1, p2 = train_step(train_params, opt, vgg_frozen, x, y, drop_gen)
-                _sync(device)
+                sync(device)
             preds1.append(gather_batch(mesh, p1))
             preds2.append(gather_batch(mesh, p2))
             labels.append(gather_batch(mesh, y))
@@ -220,8 +205,6 @@ def main(argv: list[str] | None = None):
     add_common_args(parser, defaults)
     parser.add_argument("--vgg_weights", type=str, default="",
                         help="ported VGG19 IMAGENET1K_V1 npz in the JAX package's format")
-    parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device to run on; a CUDA request without CUDA fails")
     cfg, args = parse_config(parser, defaults, argv)
     device = resolve_device(args.device)
     if spawns_ranks(cfg, device):

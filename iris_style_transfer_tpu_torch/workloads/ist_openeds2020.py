@@ -13,40 +13,23 @@ predictions and labels and logs the mean distances.  Flags and metric
 names are the JAX workload's (``validation//post/degree_distance1``, with
 its double slash), plus ``--device``.
 
-The full-resolution programs (B7 + both estimators at 400x640) run in
-chunks of :data:`SEG_CHUNK` frames under ``torch.no_grad()``.  Host metric
-work runs on one worker thread, overlapped with the next batch's device
-work, and is drained in batch order.  With
+Its sweep's loop, metric worker, spans and mesh are
+``workloads/sweep.py``'s.  The full-resolution programs (B7 + both
+estimators at 400x640) run in chunks of :data:`SEG_CHUNK` frames under
+``torch.no_grad()``, on a mesh on the rank's block, and the predictions
+are gathered; ``ist.stage`` (the pre program's quantize and host-to-card
+copy) is its own span, inside ``ist.pre``.  With
 ``--data_dir/openeds2020/openEDS2020-GazePrediction`` present the run reads
 that OpenEDS2020 tree: each split's labels eagerly, its frames streamed in
 order per sweep combination (``data/openeds2020.py:stream_openeds2020``),
 and the style iris from the frame ``test/sequences/2577/023.png``, as the
 JAX main does.  Without it, the synthetic twin with geometric gaze labels.
-
-On a mesh (``--n_devices N``, or ``torchrun``; ``parallel/mesh.py``) every
-rank walks the same global batches and runs B7, both estimators, the joint
-NST (its L-BFGS reduced over the data group) and the composite on its
-block, in chunks of :data:`SEG_CHUNK` frames; the predictions are
-gathered, and rank 0 alone writes logs, PNGs, arrays and ``done.json``.
-``--model_parallel m`` (JAX's spatial sharding) makes the mesh (n/m data,
-m model): B7, both estimators and the composite run on the rank's data
-block, repeated over its model group; the NST runs on the rank's slab of
-H rows of that block (its L-BFGS reduced over every rank), and one gather
-over the model group restores the whole stylized irises.  ``(224 / 8) %
-m`` must be 0, as in JAX.
-
-Each sweep is a run of ``runtime/profiler.py``'s spans, as in the 2019
-main, with ``ist.stage`` (the pre program's quantize and host-to-card
-copy) inside ``ist.pre`` and no ``ist.seg``.
 """
 
 from __future__ import annotations
 
 import argparse
-import itertools
 import os
-import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -55,32 +38,13 @@ from ..data import batch_iterator, load_labels_openeds2020, stream_openeds2020, 
 from ..models import EfficientNet, GazeEstimator1, GazeEstimator2, VGG19, load_pretrained, pretrained_path
 from ..ops.image import crop_and_resize, gray_to_rgb, nonzero_bbox, quantize_u8, to_unit_float
 from ..ops.metrics import angular_distance
-from ..parallel.mesh import (
-    Mesh,
-    barrier,
-    gather_batch,
-    gather_height,
-    height_sharding,
-    one_rank,
-    replicated,
-    shard_batch,
-)
+from ..parallel.mesh import Mesh, gather_batch, height_sharding, one_rank, replicated, shard_batch
 from ..pipelines import composite_batch, extract_iris_batch
-from ..runtime import MetricLogger, StepTimer, restore_params
-from ..runtime.config import (
-    WorkloadConfig,
-    add_common_args,
-    check_model_parallel,
-    main_mesh,
-    parse_config,
-    resolve_device,
-    run_on_ranks,
-    spawns_ranks,
-)
-from ..runtime.profiler import at_batch, job, new_run, span
+from ..runtime import MetricLogger, WorkloadConfig, restore_params
+from ..runtime.profiler import span
 from ..transfer.nst import cached_nst_program
-from ..utils import prepare_dir, read_image_gray, save_png, seed as seed_all, sweep_done, write_sweep_marker
-from .ist_openeds2019 import CROP, _sync
+from ..utils import read_image_gray, seed as seed_all
+from .sweep import CROP, Sweep, run_combos, sweep_main
 
 # frames per B7 + ResNet50 chunk at 400x640.  At 32 one bf16 B7 chunk
 # apply peaks at 5.06 GB and the whole main at 13.16 GB on an NVIDIA H100
@@ -147,16 +111,6 @@ def _gaze_metric_job(metric_prefix, phase, p1, p2, labs_v, valid):
     return out, {f"{phase}1": p1v, f"{phase}2": p2v}
 
 
-def _loss_job(metric_prefix, c_hist, s_hist, c_w, s_w):
-    c_loss, s_loss = float(c_hist[-1].item()), float(s_hist[-1].item())
-    log = {
-        f"{metric_prefix}/batch/c_loss": c_loss,
-        f"{metric_prefix}/batch/s_loss": s_loss,
-        f"{metric_prefix}/batch/cs_loss": c_loss * c_w + s_loss * s_w,
-    }
-    return log, {"c_loss": c_loss, "s_loss": s_loss}
-
-
 def iris_style_transfer_openeds2020(
     cfg: WorkloadConfig,
     images,
@@ -194,77 +148,30 @@ def iris_style_transfer_openeds2020(
         cfg.stats_taps, mesh,
     )
     s_iris_rgb = gray_to_rgb(s_iris.to(device)).permute(2, 0, 1)  # (3, 224, 224)
+    sweep = Sweep(mesh, device, metric_prefix, save_dir, save_period, c_loss_weight, s_loss_weight)
 
-    agg = {"pre1": [], "pre2": [], "post1": [], "post2": [], "labels": [], "c_loss": [], "s_loss": []}
-    timer = StepTimer()
-    metric_pool = ThreadPoolExecutor(max_workers=1)
-    pending: list[tuple[dict, list]] = []
-    pipe_times: list[float] = []
+    def unpack(batch):
+        return batch[0], batch[1], batch[2] if len(batch) > 2 else np.ones(len(batch[1]), bool)
 
-    new_run()
-    batches = iter(images() if callable(images) else batch_iterator((images, labels), cfg.bs, pad_final=True))
-    try:
-        for batch_id in itertools.count():
-            at_batch(batch_id)
-            with span("ist.load"):
-                batch = next(batches, None)
-                t_batch = time.perf_counter()
-                if batch is not None:
-                    c_imgs, labs = batch[0], batch[1]
-                    valid = batch[2] if len(batch) > 2 else np.ones(len(labs), bool)
-            if batch is None:
-                break
-            if batch_id % save_period == 0 and mesh.is_main:
-                with span("ist.save"):
-                    save_png(f"{save_dir}batch_{batch_id}_raw.png", c_imgs[0])
+    def body(c_imgs, labs, valid):
+        sweep.save(raw=c_imgs)
+        with span("ist.pre"):  # the program, and its metrics handed to the worker
+            p1, p2, irises, masks, bboxes, frames_dev = pre_fn(eff_params, g1_params, g2_params, c_imgs)
+            # metrics over valid rows only: padded rows repeat the last frame
+            labs_v = np.asarray(labs)[valid]
+            sweep.submit(_gaze_metric_job, metric_prefix, "pre", gather_batch(mesh, p1), gather_batch(mesh, p2),
+                         labs_v, valid)
+            sweep.agg["labels"].append(labs_v)
+            rows = height_sharding(mesh, CROP[0])  # this rank's slab of the irises' H
+        with sweep.nst(lambda: nst_fn(vgg_params, irises.permute(0, 3, 1, 2)[:, :, rows],
+                                      s_iris_rgb[:, rows].expand(irises.shape[0], -1, -1, -1))) as stylized:
+            new_frames, p1, p2 = post_fn(eff_params, g1_params, g2_params, frames_dev, stylized, masks, bboxes)
+            sweep.submit(_gaze_metric_job, metric_prefix, "post", gather_batch(mesh, p1), gather_batch(mesh, p2),
+                         labs_v, valid)
+        sweep.save(new=new_frames)
 
-            with span("ist.pre"):  # the program, and its metrics handed to the worker
-                p1, p2, irises, masks, bboxes, frames_dev = pre_fn(eff_params, g1_params, g2_params, c_imgs)
-                # metrics over valid rows only: padded rows repeat the last frame
-                labs_v = np.asarray(labs)[valid]
-                futs = [metric_pool.submit(job("ist.metric_job", _gaze_metric_job), metric_prefix, "pre",
-                                           gather_batch(mesh, p1), gather_batch(mesh, p2), labs_v, valid)]
-                agg["labels"].append(labs_v)
-                rows = height_sharding(mesh, CROP[0])  # this rank's slab of the irises' H
-
-            with timer:
-                with span("ist.nst"):
-                    s_batch = s_iris_rgb[:, rows].expand(irises.shape[0], -1, -1, -1)
-                    result = nst_fn(vgg_params, irises.permute(0, 3, 1, 2)[:, :, rows], s_batch)
-                    stylized = gather_height(mesh, result.x)
-                with span("ist.nst_sync"):
-                    _sync(device)
-
-            with span("ist.post"):  # the NST's losses to the worker, the program, its metrics to the worker
-                futs.append(metric_pool.submit(
-                    job("ist.metric_job", _loss_job), metric_prefix, result.c_loss_hist, result.s_loss_hist,
-                    c_loss_weight, s_loss_weight,
-                ))
-                new_frames, p1, p2 = post_fn(eff_params, g1_params, g2_params, frames_dev, stylized, masks, bboxes)
-                futs.append(metric_pool.submit(job("ist.metric_job", _gaze_metric_job), metric_prefix, "post",
-                                               gather_batch(mesh, p1), gather_batch(mesh, p2), labs_v, valid))
-
-            if batch_id % save_period == 0 and mesh.is_main:  # rank 0's block starts the batch
-                with span("ist.save"):
-                    save_png(f"{save_dir}batch_{batch_id}_new.png", new_frames[0].cpu().numpy())
-            pending.append(({}, futs))
-            pipe_times.append(time.perf_counter() - t_batch)
-
-        # drain in batch order; the drain's wall time counts against the
-        # end-to-end throughput below
-        at_batch(None)
-        with span("ist.drain"):
-            t_drain0 = time.perf_counter()
-            for blog, futs in pending:
-                for f in futs:
-                    log_upd, agg_upd = f.result()
-                    blog.update(log_upd)
-                    for k, v in agg_upd.items():
-                        agg[k].append(v)
-                logger.log(blog)
-            t_drain = time.perf_counter() - t_drain0
-    finally:
-        metric_pool.shutdown(wait=True)
+    batches = images() if callable(images) else batch_iterator((images, labels), cfg.bs, pad_final=True)
+    agg = sweep.run(batches, unpack, body, logger)
 
     with span("ist.aggregate"):
         log = {}
@@ -279,16 +186,8 @@ def iris_style_transfer_openeds2020(
                 rad, deg = angular_distance(torch.from_numpy(preds), torch.from_numpy(labels_all))
                 log[f"{metric_prefix}/{phase}/radian_distance{i}"] = float(rad.mean())
                 log[f"{metric_prefix}/{phase}/degree_distance{i}"] = float(deg.mean())
-        c_loss = float(np.nanmean(agg["c_loss"]))
-        s_loss = float(np.nanmean(agg["s_loss"]))
-        log[f"{metric_prefix}/c_loss"] = c_loss
-        log[f"{metric_prefix}/s_loss"] = s_loss
-        log[f"{metric_prefix}/cs_loss"] = c_loss * c_loss_weight + s_loss * s_loss_weight
-        log[f"{metric_prefix}/stylized_images_per_min"] = timer.per_sec(cfg.bs) * 60
-        # end to end: the first (warm-up) batch is excluded when there are more
-        pipe = pipe_times[1:] if len(pipe_times) > 1 else pipe_times
-        if pipe:
-            log[f"{metric_prefix}/pipeline_images_per_min"] = cfg.bs * len(pipe) / (sum(pipe) + t_drain) * 60
+        log.update(sweep.loss_means())
+        log.update({f"{metric_prefix}/{k}": v for k, v in sweep.rates(cfg.bs).items() if k != "nst_batches_per_sec"})
         logger.log(log)
     return log
 
@@ -307,32 +206,18 @@ def make_style_iris(eff_params, img: torch.Tensor, glint_threshold: float, compu
 
 def main(argv: list[str] | None = None):
     parser = argparse.ArgumentParser()
-    defaults = WorkloadConfig(project="iris-style-transfer-openeds2020", bs=128)
-    add_common_args(parser, defaults)
     parser.add_argument("-path1", "--estimator1_path", type=str, default="")
     parser.add_argument("-path2", "--estimator2_path", type=str, default="")
-    parser.add_argument("--vgg_weights", type=str, default="",
-                        help="ported VGG19 IMAGENET1K_V1 npz in the JAX package's format")
     parser.add_argument("--effnet_weights", type=str, default="",
                         help="ported smp Unet(efficientnet-b7) npz in the JAX package's format")
     parser.add_argument("--resnet_weights", type=str, default="",
                         help="ported ResNet50 IMAGENET1K_V2 npz for GazeEstimator2's backbone")
-    parser.add_argument("--nst_epochs", type=int, nargs="+", default=[200])
-    parser.add_argument("--s_loss_weights", type=float, nargs="+", default=[1.0])
-    parser.add_argument("--rerun", action="store_true",
-                        help="re-run sweep combos that already have a done.json marker")
-    parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device to run on; a CUDA request without CUDA fails")
-    cfg, args = parse_config(parser, defaults, argv)
+    return sweep_main(main, argv, parser, WorkloadConfig(project="iris-style-transfer-openeds2020", bs=128), _sweeps)
 
-    device = resolve_device(args.device)
-    check_model_parallel(cfg.model_parallel, CROP[0])
-    if spawns_ranks(cfg, device):
-        return run_on_ranks(main, argv, cfg, device)
-    mesh = main_mesh(cfg, device)
+
+def _sweeps(cfg: WorkloadConfig, args, mesh: Mesh) -> dict:
+    """Every combo of the validation split, and the train and test splits with ``--eval_train``, ``--eval_test``."""
     device = mesh.device
-    if cfg.bs % mesh.batch_shards:
-        raise SystemExit(f"batch size {cfg.bs} not divisible by {mesh.batch_shards} data shards")
     gen = seed_all(cfg.seed)
     vgg_params = load_pretrained("vgg19", args.vgg_weights, lambda: VGG19.init(gen, device), device)
     eff_params = load_pretrained("efficientnet_unet", args.effnet_weights,
@@ -361,12 +246,6 @@ def main(argv: list[str] | None = None):
     s_img = torch.from_numpy(s_img).to(device)
     s_iris = make_style_iris(eff_params, s_img, cfg.glint_threshold, compute_dtype)
 
-    presentation = {"name", "project", "num_workers", "resume", "save_period"}
-    sweep_config = {k: v for k, v in cfg.to_dict().items() if k not in presentation}
-    sweep_config.update(vgg_weights=args.vgg_weights, effnet_weights=args.effnet_weights,
-                        resnet_weights=args.resnet_weights, estimator1_path=args.estimator1_path,
-                        estimator2_path=args.estimator2_path)
-
     postfixes = ["validation/"]
     if cfg.eval_train:
         postfixes.append("train/")
@@ -386,28 +265,20 @@ def main(argv: list[str] | None = None):
             # the twin's gaze is geometric (the iris offset inside the sclera)
             images, _, _, labels = synthetic_eye_batch(24, seed=cfg.seed, gaze=True)
         print(f"number of samples in {postfix} set:", len(labels))
-        for sw in args.s_loss_weights:
-            for nst_epoch in args.nst_epochs:
-                save_dir = f"saved/openeds2020/sw_{sw}_epoch_{nst_epoch}/{postfix}"
-                done_marker = os.path.join(save_dir, "done.json")
-                barrier(mesh)  # rank 0's markers are written before any rank reads them
-                if sweep_done(done_marker, sweep_config, defaults=WorkloadConfig().to_dict()) and not args.rerun:
-                    print(f"[sweep] {save_dir} already complete, skipping")
-                    continue
-                if mesh.is_main:
-                    prepare_dir(save_dir, idempotent=True)
-                    np.save(f"{save_dir}gts.npy", labels)
-                name = f"seed {cfg.seed} sw {sw} epoch {nst_epoch} test"
-                logger = MetricLogger(cfg.project, name, cfg.to_dict(), enabled=mesh.is_main)
-                log = iris_style_transfer_openeds2020(
-                    cfg, images, labels, eff_params, g1_params, g2_params, vgg_params, s_iris,
-                    cfg.c_loss_weight, sw, nst_epoch, postfix, save_dir, logger, device,
-                    programs=programs, mesh=mesh,
-                )
-                logger.finish()
-                if mesh.is_main:
-                    write_sweep_marker(done_marker, sweep_config, log)
-                results[(postfix, sw, nst_epoch)] = log
+
+        def run(sw, nst_epoch, save_dir, logger):
+            if mesh.is_main:
+                np.save(f"{save_dir}gts.npy", labels)
+            return iris_style_transfer_openeds2020(
+                cfg, images, labels, eff_params, g1_params, g2_params, vgg_params, s_iris,
+                cfg.c_loss_weight, sw, nst_epoch, postfix, save_dir, logger, device,
+                programs=programs, mesh=mesh,
+            )
+
+        results |= run_combos(cfg, args, mesh, "openeds2020", postfix, "test", run,
+                              vgg_weights=args.vgg_weights, effnet_weights=args.effnet_weights,
+                              resnet_weights=args.resnet_weights, estimator1_path=args.estimator1_path,
+                              estimator2_path=args.estimator2_path)
     return results
 
 

@@ -5,8 +5,9 @@ against the JAX package's ``experiments.sh``, on the CPU.
 lines and ``for`` loops expand to the 27 command lines, and the sweep's
 ``--dry_run`` prints the same lines in the same order, with the port's
 module prefix and ``--device``.  Every line's flags parse with the port's
-own parser for that main (its ``parse_config`` is stopped right after the
-parse, so nothing runs).
+own parser for that main (the ``parse_config`` it calls, which for the IST
+mains is ``workloads/sweep.py``'s, is stopped right after the parse, so
+nothing runs).
 """
 
 import os
@@ -17,11 +18,12 @@ import pytest
 
 from iris_style_transfer_tpu_torch import experiments
 from iris_style_transfer_tpu_torch.workloads import (gaze_estimation, iris_classification, ist_openeds2019,
-                                                     ist_openeds2020)
+                                                     ist_openeds2020, sweep)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MAINS = {"iris_classification": iris_classification, "gaze_estimation": gaze_estimation,
          "ist_openeds2019": ist_openeds2019, "ist_openeds2020": ist_openeds2020}
+PARSES = {**MAINS, "ist_openeds2019": sweep, "ist_openeds2020": sweep}  # the module whose parse_config a main calls
 
 
 def _sh_lines() -> list[str]:
@@ -60,14 +62,15 @@ class _Parsed(Exception):
 def test_every_line_parses_with_the_ports_parser(monkeypatch, index):
     argv = experiments.command_lines("cpu")[index]
     assert argv[0] == "-m" and argv[1].startswith(experiments.MODULE)
-    module = MAINS[argv[1][len(experiments.MODULE):]]
-    seen, real_parse = {}, module.parse_config
+    name = argv[1][len(experiments.MODULE):]
+    module, parses = MAINS[name], PARSES[name]
+    seen, real_parse = {}, parses.parse_config
 
     def parse_only(parser, defaults, args):
         seen["cfg"], seen["args"] = real_parse(parser, defaults, args)
         raise _Parsed
 
-    monkeypatch.setattr(module, "parse_config", parse_only)
+    monkeypatch.setattr(parses, "parse_config", parse_only)
     with pytest.raises(_Parsed):
         module.main(argv[2:])
     flags = dict(zip(argv[2::2], argv[3::2]))

@@ -36,7 +36,7 @@ from benchmark.reference import gaze_train as ref
 from iris_style_transfer_tpu_torch.runtime import profiler
 from iris_style_transfer_tpu_torch.runtime.config import WorkloadConfig
 from iris_style_transfer_tpu_torch.workloads import gaze_estimation as wl
-from iris_style_transfer_tpu_torch.workloads.iris_classification import trainable
+from iris_style_transfer_tpu_torch.runtime.checkpoint import trainable
 
 SEED = 2**31 + 11
 N, H, W = 4, 64, 96

@@ -351,7 +351,7 @@ def _adam_run(mesh, steps: int, ckpt_in: str | None = None, ckpt_out: str | None
     returns the whole parameters."""
     from iris_style_transfer_tpu_torch.models.classifiers import _mlp
     from iris_style_transfer_tpu_torch.runtime.checkpoint import resume_training_state, save_training_state
-    from iris_style_transfer_tpu_torch.workloads.iris_classification import trainable
+    from iris_style_transfer_tpu_torch.runtime.checkpoint import trainable
 
     spec = {"c2": mlp_tp_spec()} if mesh.shape["model"] > 1 else None
     params = shard_params(mesh, _small_heads(), spec)

@@ -28,6 +28,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from iris_style_transfer_tpu_torch.data import fake_openeds
 from iris_style_transfer_tpu_torch.parallel import run_ranks
@@ -47,6 +48,17 @@ def bounded_ranks(monkeypatch):
     """The mains spawn their ranks through ``run_on_ranks``; here each such
     run is joined with a timeout, after which its ranks are killed."""
     monkeypatch.setattr(config, "run_ranks", functools.partial(run_ranks, timeout=JOIN_S))
+
+
+@pytest.fixture(autouse=True)
+def two_threads():
+    """Two intra-op threads, which ``run_ranks`` hands on to each spawned
+    rank: with the test worker's count, two ranks beside the other test
+    workers oversubscribed the host and outlasted :data:`JOIN_S`."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _run(tmp_path, monkeypatch, name: str, main, argv):

@@ -228,7 +228,7 @@ def test_two_adam_steps_match_optax(heads, train_vgg):
         train_params["vgg"] = from_jax(heads["vgg"])
     else:
         vgg_frozen = VGG19.cast(from_jax(heads["vgg"]), torch.float32)
-    opt = torch.optim.Adam(wl.trainable(train_params), lr=1e-3)
+    opt = torch.optim.Adam(tckpt.trainable(train_params), lr=1e-3)
     train_step, _ = wl.make_steps(torch.float32)
     train_step(train_params, opt, vgg_frozen, torch.from_numpy(x[0]), torch.from_numpy(y[0]), None)
     grads = jax.tree.map(lambda t: t.grad, train_params)

@@ -101,7 +101,7 @@ def test_one_training_step_matches_optax(estimator):
     want_g, want_p = _one_step(estimator, jp, x, y, 1e-4)
 
     params = from_jax(jp)
-    opt = torch.optim.Adam(wl2019.trainable(params), lr=1e-4)
+    opt = torch.optim.Adam(tckpt.trainable(params), lr=1e-4)
     train_step, _ = wl.make_steps(estimator, torch.float32)
     train_step(params, opt, torch.from_numpy(x), torch.from_numpy(y), None)
     g_err = _rel(to_jax(jax.tree.map(lambda t: t.grad, params)), want_g)
@@ -149,7 +149,7 @@ def test_resume_repeats_the_straight_run_bit_for_bit(tmp_path):
 
     def fresh():
         params = wl.GazeEstimator1.init(torch.Generator().manual_seed(0))
-        return params, torch.optim.Adam(wl2019.trainable(params), lr=1e-3)
+        return params, torch.optim.Adam(tckpt.trainable(params), lr=1e-3)
 
     def step(params, opt, i):
         train_step(params, opt, x[i], y[i], torch.Generator().manual_seed(100 + i))
